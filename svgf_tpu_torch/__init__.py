@@ -1,0 +1,19 @@
+"""svgf_tpu_torch — the PyTorch + CUDA port of svgf_tpu for NVIDIA Hopper.
+
+The same renderer as svgf_tpu (a hybrid 1spp path tracer with a G-buffer
+pass and the SVGF denoiser), written as plain torch functions with the
+filter stencils as hand-written CUDA kernels (csrc/, kernels/). Module
+paths mirror svgf_tpu's, so each port module sits where its JAX
+counterpart does; svgf_tpu stays the reference the tests hold it against.
+The port never imports JAX: from svgf_tpu it uses only the JAX-free
+`config` and `accel` modules.
+
+    from svgf_tpu_torch.config import RenderConfig
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+    from svgf_tpu_torch.render.pipeline import Renderer
+
+    r = Renderer(cornell_box(aspect=16 / 9), RenderConfig(width=640, height=360), device="cuda")
+    out = r.step()
+"""
+
+__version__ = "0.1.0"

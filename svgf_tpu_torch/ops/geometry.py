@@ -1,0 +1,146 @@
+"""Geometry primitives on batched tensors (svgf_tpu/ops/geometry.py).
+
+Rays and vectors are (..., 3). Each function keeps the operation order of
+its JAX counterpart, so the two packages round alike. Reference device
+library: Moller-Trumbore Common.cuh:509-536, transforms Common.cuh:299-329.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MAX_LENGTH = 1e30
+PI = 3.14159  # the reference uses PI_F = 3.14159 (Common.cuh:22), not math.pi
+
+
+def dot(a, b):
+    return (a * b).sum(-1)
+
+
+def _norm(v):
+    return torch.sqrt((v * v).sum(-1, keepdim=True))
+
+
+class _SafeSqrt(torch.autograd.Function):
+    """sqrt(max(x, 0)) with a clamped derivative: 0.5/sqrt(max(x, 1e-12))
+    for x > 0 and 0 for clamped lanes, so a downstream mask never meets
+    the inf derivative of sqrt at 0 (svgf_tpu/ops/geometry.py:23-41)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.sqrt(torch.clamp_min(x, 0.0))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        d = torch.where(x > 0.0, 0.5 / torch.sqrt(torch.clamp_min(x, 1e-12)), 0.0)
+        return g * d
+
+
+class _Unit(torch.autograd.Function):
+    """v/|v| whose Jacobian is zero on degenerate lanes (|v| <= 1e-9): a
+    zero direction is always a masked lane, and its ~1/|v| cotangent would
+    overflow upstream (svgf_tpu/ops/geometry.py:44-62)."""
+
+    @staticmethod
+    def forward(ctx, v):
+        n = _norm(v)
+        y = v / torch.clamp_min(n, 1e-30)
+        ctx.save_for_backward(y, n)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, n = ctx.saved_tensors
+        ok = n > 1e-9
+        ns = torch.where(ok, n, 1.0)
+        return torch.where(ok, (g - y * (y * g).sum(-1, keepdim=True)) / ns, 0.0)
+
+
+def safe_sqrt(x):
+    return _SafeSqrt.apply(x)
+
+
+def normalize(v, eps=0.0):
+    if eps != 0.0:
+        return v / torch.clamp_min(_norm(v), eps)
+    return _Unit.apply(v)
+
+
+def transform_point(m, p):
+    """(...,4,4) @ (...,3) -> (...,3), w=1, no perspective divide (Common.cuh:299)."""
+    return (m[..., :3, :3] * p[..., None, :]).sum(-1) + m[..., :3, 3]
+
+
+def transform_vector(m, d):
+    """w=0 transform, NO normalize (Common.cuh:627)."""
+    return (m[..., :3, :3] * d[..., None, :]).sum(-1)
+
+
+def transform_direction(m, d):
+    """w=0 transform + normalize (Common.cuh:305-309)."""
+    return normalize(transform_vector(m, d))
+
+
+def basis_from_z(z):
+    """Pixar orthonormal basis (Common.cuh:317-329). Returns (x, y, z) unit vecs."""
+    z = normalize(z)
+    sign = torch.where(z[..., 2] > 0, 1.0, -1.0)
+    a = -1.0 / (sign + z[..., 2])
+    b = z[..., 0] * z[..., 1] * a
+    x = torch.stack(
+        [1.0 + sign * z[..., 0] ** 2 * a, sign * b, -sign * z[..., 0]], dim=-1
+    )
+    y = torch.stack([b, sign + z[..., 1] ** 2 * a, -z[..., 1]], dim=-1)
+    return x, y, z
+
+
+# Componentwise variants: every operand is a tuple of three tensors.
+
+
+def dot3(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def cross3(a, b):
+    return (
+        a[1] * b[2] - a[2] * b[1],
+        a[2] * b[0] - a[0] * b[2],
+        a[0] * b[1] - a[1] * b[0],
+    )
+
+
+def sub3(a, b):
+    return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
+
+
+def ray_triangle_comp(ro, rd, v0, v1, v2):
+    """Moller-Trumbore on component tuples. Returns (t, u, v, hit), with
+    t = MAX_LENGTH where missed."""
+    e1 = sub3(v1, v0)
+    e2 = sub3(v2, v0)
+    h = cross3(rd, e2)
+    a = dot3(e1, h)
+    parallel = torch.abs(a) < 1e-8
+    f = 1.0 / torch.where(parallel, 1.0, a)
+    s = sub3(ro, v0)
+    u = f * dot3(s, h)
+    q = cross3(s, e1)
+    v = f * dot3(rd, q)
+    t = f * dot3(e2, q)
+    hit = (~parallel) & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & (t > 1e-8)
+    return torch.where(hit, t, MAX_LENGTH), u, v, hit
+
+
+def luminance(rgb):
+    """Rec.709 (Filter.cuh:260-263)."""
+    return 0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1] + 0.0722 * rgb[..., 2]
+
+
+def to_srgb(c):
+    """sRGB transfer (Filter.cuh:145-148); the power branch's base is
+    clamped away from 0 so the untaken branch's gradient stays finite."""
+    c = torch.clamp_min(c, 0.0)
+    safe = torch.clamp_min(c, 0.0031308)
+    return torch.where(c <= 0.0031308, 12.92 * c, 1.055 * torch.pow(safe, 1.0 / 2.4) - 0.055)

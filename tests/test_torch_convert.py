@@ -1,0 +1,64 @@
+"""svgf_tpu's data carries across to the port (svgf_tpu_torch.convert).
+
+The Cornell scene flattened by svgf_tpu and converted equals the port's
+own Scene.flatten() bit for bit, field by field and SceneMeta entry by
+entry; and a JAX fp16 TemporalState after two frames, converted, renders
+the third frame as svgf_tpu does, to tests/test_torch_pipeline.py's
+tolerances.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from svgf_tpu.config import RenderConfig, SVGFConfig, TracingConfig
+from svgf_tpu.core.camera import orbit_frame
+from svgf_tpu.render.pipeline import Renderer as JRenderer
+from svgf_tpu.scenes import cornell_box as j_cornell
+from svgf_tpu_torch import convert
+from svgf_tpu_torch.core.scene import SceneArrays, SceneMeta
+from svgf_tpu_torch.render.pipeline import render_frame
+from svgf_tpu_torch.scenes.cornell import cornell_box
+
+W, H = 32, 24
+
+
+@pytest.mark.parametrize("aspect", [1.0, 16 / 9])
+def test_flatten_matches_jax_bitwise(aspect):
+    want = jax.tree.map(np.asarray, j_cornell(aspect=aspect).flatten())
+    got = cornell_box(aspect=aspect).flatten()
+    conv = convert.scene_arrays(want)
+    for f in dataclasses.fields(SceneMeta):
+        assert getattr(got.meta, f.name) == getattr(want.meta, f.name), f.name
+    assert conv.meta == got.meta
+    for name in SceneArrays.tensor_fields():
+        w, g, c = getattr(want, name), getattr(got, name), getattr(conv, name)
+        assert g.shape == w.shape and str(g.dtype) == f"torch.{w.dtype}", name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+        assert torch.equal(c, g), name
+
+
+def test_jax_state_renders_third_frame():
+    cfg = RenderConfig(width=W, height=H, svgf=SVGFConfig(spatial_filter_steps=2),
+                       tracing=TracingConfig(bounces=2), state_dtype="float16",
+                       use_pallas="off", seed=3)
+    jr = JRenderer(j_cornell(aspect=W / H), cfg)
+    for f in range(3):
+        jr.update_camera(orbit_frame([0.0, 0.0, 0.0], 3.4, theta=0.017 + 0.02 * f, phi=0.009))
+        if f == 2:
+            state = convert.temporal_state(jax.tree.map(np.asarray, jr.state))
+            arrays = convert.scene_arrays(jax.tree.map(np.asarray, jr.arrays))
+        out = jax.tree.map(np.asarray, jr.step())
+    assert state.frame_idx == 2 and state.color.dtype == torch.float16
+
+    got, new_state = render_frame(arrays, state, cfg)
+    assert new_state.frame_idx == 3
+    np.testing.assert_allclose(got.radiance.numpy(), out.radiance, atol=1e-4)
+    for tap, max_tol in (("temporal", 2e-2), ("moments_filtered", 2e-2), ("atrous", 2e-2),
+                         ("final", 5e-3)):
+        d = np.abs(getattr(got, tap).numpy() - getattr(out, tap))
+        assert d.mean() < 1e-4, (tap, d.mean())
+        assert (d > max_tol).mean() == 0.0, (tap, d.max())
