@@ -7,17 +7,31 @@ Run from the root of the repository:
 
 Phases, each failing loudly (no phase catches an exception):
   1. the card: CUDA must be available; prints nvidia-smi's name and power limit;
-  2. build: compiles svgf_tpu_torch/csrc into one library (prints seconds and
-     ptxas' register report);
-  3. each filter kernel against its plain torch version on the card at
-     1920x1080, on seeded inputs with disocclusions, background and large
+  2. build: compiles svgf_tpu_torch/csrc, one nvcc per source started
+     together, into one library (prints seconds and ptxas' register report);
+  3. each filter kernel (K1-K4) against its plain torch version on the card
+     at 1920x1080, on seeded inputs with disocclusions, background and large
      motion; prints both times (CUDA events) and the errors;
-  4. the main path: Renderer.step on the Cornell box at 1920x1080, 5 a-trous
+  4. the dense intersector kernel (K5) against its plain version on the
+     1080p Cornell box: the primary rays and 2,073,600 seeded secondary rays
+     from inside the box, plain and with an active mask, a per-ray tmax and
+     only_instance=3;
+  5. the scene-BVH intersector kernel (K6) against its plain walk on the
+     104,884-triangle stress terrain: the 2,088,960 block-ordered 1080p
+     primary rays and 65,536 scrambled rays (plain, and with an active mask
+     and tmax, and only_instance=1); prints Mrays/s and the node visits;
+  6. the main path: Renderer.step on the Cornell box at 1920x1080, 5 a-trous
      steps, fp16 state, for FRAMES frames with a small camera orbit, through
      the kernels; checks the launch counts per frame, that the image is finite
      and in [0, 1], and that the last frame matches the same frames run
      through the plain versions; prints frame and per-stage milliseconds and
-     rays traced.
+     rays traced, and profiles one more frame (the device's busy share and
+     the operations with the most device time);
+  7. the stress path: the same on the stress terrain at 1920x1080 through
+     the kernels (K1-K4, K6), and kernels against plain at 480x270.
+Every kernel's row carries its bound: the larger of the bytes it must move
+over 3.35 TB/s and its FP32 operations on these inputs over 67 TFLOP/s
+(the H100 SXM's published peaks at 700 W).
 The last lines are the nvidia-smi line, a JSON line of the kernels, and
 {"ok": true, "device": {...}}.
 """
@@ -25,6 +39,7 @@ The last lines are the nvidia-smi line, a JSON line of the kernels, and
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -35,11 +50,24 @@ import torch
 
 H, W = 1080, 1920
 FRAMES = 4
-# 2 lane chunks: (2 x 1,036,800 rays) x 36 triangles per intersect temporary.
-# The plain torch trace is launch-bound, so fewer, larger chunks are faster
-# (PERF.md section 5).
+# 2 lane chunks: the 1080p frame's trace in two halves (PERF.md section 5).
 TRACE_CHUNKS = 2
 TIMED_ITERS = 20
+STRESS_N = 230                # stress_scene(n=230): 104,884 world triangles
+SMALL_H, SMALL_W = 270, 480   # the stress path's kernels-vs-plain frames
+SCRAMBLED = 65536
+
+PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
+PEAK_FP32_PER_S = 67e12       # H100 SXM FP32 outside the tensor cores
+# FP32 operations of each function on its inputs, counted from the kernel
+# sources (add, sub, mul, div, min, max, abs, compare, sqrt/exp/pow: one each)
+OPS_TEMPORAL = 60        # a pixel
+OPS_MOMENTS_TAP = 46     # a tap (49) of a fallback pixel; pass-through pixels none
+OPS_ATROUS_TAP = 52      # a tap (24) of a valid-depth pixel, per step
+OPS_TAA = 400            # a pixel (9 PAL-YUV encodes, box clamp, decode, sRGB)
+OPS_MT = 55              # a ray-triangle test (Moller-Trumbore, verdict, best-so-far)
+OPS_SLAB = 28            # a scene-BVH node visit (slab test, verdict)
+OPS_RECOMPUTE = 53       # a ray: the wrapper's recompute of the winner's t/u/v
 
 # name, source, the TPU kernel it replaces (svgf_tpu, file:line of the function)
 KERNELS = (
@@ -47,6 +75,10 @@ KERNELS = (
     ("moments", "svgf_tpu_torch/csrc/moments.cu", "svgf_tpu/kernels/planar.py:721"),
     ("atrous", "svgf_tpu_torch/csrc/atrous.cu", "svgf_tpu/kernels/planar.py:918"),
     ("taa", "svgf_tpu_torch/csrc/taa.cu", "svgf_tpu/kernels/planar.py:1153"),
+    ("intersect_dense", "svgf_tpu_torch/csrc/intersect_dense.cu",
+     "svgf_tpu/kernels/intersect_pallas.py:561"),
+    ("intersect_clustered", "svgf_tpu_torch/csrc/intersect_clustered.cu",
+     "svgf_tpu/kernels/intersect_pallas.py:489"),
 )
 
 
@@ -79,9 +111,9 @@ def build_kernels() -> float:
     return seconds
 
 
-def cuda_ms(fn, iters: int = TIMED_ITERS) -> float:
+def cuda_ms(fn, iters: int = TIMED_ITERS, warmup: int = 3) -> float:
     """Mean milliseconds of fn() on the card, by CUDA events, after warm-up."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -91,6 +123,39 @@ def cuda_ms(fn, iters: int = TIMED_ITERS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_pair(name, kernel, plain, iters=TIMED_ITERS, plain_iters=TIMED_ITERS, plain_warmup=3):
+    """Kernel and plain in turns plain, kernel, kernel, plain, so both see
+    the same card state; returns {"ms", "plain_ms"}."""
+    p1 = cuda_ms(plain, plain_iters, plain_warmup)
+    k1, k2 = cuda_ms(kernel, iters), cuda_ms(kernel, iters)
+    p2 = cuda_ms(plain, plain_iters, plain_warmup)
+    log(f"  {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes moved (each input read
+    once, each output written once) over its memory rate, or operations
+    over its FP32 rate, whichever is longer."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_FP32_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": int(n_bytes), "bound_ops": int(n_ops)}
+
+
+def cuda(x, dtype=torch.float32):
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# K1-K4: the filter stages
+# ---------------------------------------------------------------------------
 
 
 def frame_inputs(seed: int = 0):
@@ -122,7 +187,6 @@ def frame_inputs(seed: int = 0):
     n = np.where(bg[..., None], 0.0, n)
     inst = np.where(bg, -1, inst)
 
-    cuda = lambda x, dt=torch.float32: torch.as_tensor(np.asarray(x), dtype=dt, device="cuda")
     gbuf = GBuffer.zeros(H, W, device="cuda")._replace(
         depth=cuda(depth), depth_deriv=cuda(rng.uniform(1e-4, 1e-2, (H, W))),
         normal=cuda(n), instance=cuda(inst, torch.int32), motion=cuda(motion),
@@ -157,7 +221,7 @@ def assert_stage(name, got, want, exact_tol=None):
     return max_err
 
 
-def check_kernels() -> dict:
+def check_filter_kernels() -> dict:
     from svgf_tpu_torch.config import SVGFConfig
     from svgf_tpu_torch.kernels import filter as K
     from svgf_tpu_torch.render import svgf as P
@@ -167,60 +231,289 @@ def check_kernels() -> dict:
     t_args = (radiance, state.color, gbuf, state.gbuffer, state.moments, state.history_len,
               sv.depth_threshold, sv.normal_threshold, sv.history_length)
     results = {}
+    px = H * W
 
-    log("kernel vs plain, 1920x1080:")
+    log("filter kernels vs plain, 1920x1080:")
     tk, tp = K.temporal_filter(*t_args), P.temporal_filter(*t_args)
     err = max(assert_stage("temporal.color", tk.color, tp.color, 3e-5),
               assert_stage("temporal.moments", tk.moments, tp.moments, 3e-5))
     assert torch.equal(tk.history_len, tp.history_len), "temporal history"
     assert torch.equal(tk.reprojected, tp.reprojected), "temporal reprojected"
     log(f"  temporal: {float(tp.reprojected.float().mean()) * 100:.2f}% reprojected")
-    results["temporal"] = (err, lambda: K.temporal_filter(*t_args), lambda: P.temporal_filter(*t_args))
+    b = bound(nbytes(radiance, state.color, gbuf.depth, gbuf.normal, gbuf.instance, gbuf.motion,
+                     state.gbuffer.depth, state.gbuffer.normal, state.gbuffer.instance,
+                     state.moments, state.history_len, *tp), px * OPS_TEMPORAL)
+    results["temporal"] = (err, b, lambda: K.temporal_filter(*t_args),
+                           lambda: P.temporal_filter(*t_args))
 
     m_args = (tp.color, tp.moments, gbuf, tp.history_len, sv.phi_colour, sv.phi_normal)
     mp = P.filter_moments(*m_args)
     err = assert_stage("moments", K.filter_moments(*m_args), mp)
-    results["moments"] = (err, lambda: K.filter_moments(*m_args), lambda: P.filter_moments(*m_args))
+    fallback = int(((tp.history_len < 4) & (gbuf.depth != 0)).sum())
+    log(f"  moments: {fallback} fallback pixels ({100 * fallback / px:.2f}%)")
+    b = bound(nbytes(tp.color, tp.moments, gbuf.depth, gbuf.depth_deriv, gbuf.normal,
+                     tp.history_len, mp), fallback * 49 * OPS_MOMENTS_TAP)
+    results["moments"] = (err, b, lambda: K.filter_moments(*m_args),
+                          lambda: P.filter_moments(*m_args))
 
     a_args = (mp, gbuf, sv.spatial_filter_steps, sv.phi_colour, sv.phi_normal)
     ak, ap = K.wavelet_filter(*a_args), P.wavelet_filter(*a_args)
     err = max(assert_stage("atrous.final", ak[0], ap[0]),
               assert_stage("atrous.feedback", ak[1], ap[1]))
-    results["atrous"] = (err, lambda: K.wavelet_filter(*a_args), lambda: P.wavelet_filter(*a_args))
+    valid = int((gbuf.depth != 0).sum())
+    b = bound(nbytes(mp, gbuf.depth, gbuf.depth_deriv, gbuf.normal, *ap),
+              sv.spatial_filter_steps * valid * 24 * OPS_ATROUS_TAP)
+    results["atrous"] = (err, b, lambda: K.wavelet_filter(*a_args),
+                         lambda: P.wavelet_filter(*a_args))
 
     x_args = (ap[0], state.taa_history)
-    err = assert_stage("taa", K.taa(*x_args), P.taa(*x_args))
-    results["taa"] = (err, lambda: K.taa(*x_args), lambda: P.taa(*x_args))
+    xp = P.taa(*x_args)
+    err = assert_stage("taa", K.taa(*x_args), xp)
+    results["taa"] = (err, bound(nbytes(*x_args, xp), px * OPS_TAA), lambda: K.taa(*x_args),
+                      lambda: P.taa(*x_args))
 
     timed = {}
-    for name, (err, kernel, plain) in results.items():
-        # plain, kernel, kernel, plain: both sides see the same card state
-        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
-        timed[name] = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
-        log(f"  {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms"
-            + (" (5-step chain)" if name == "atrous" else ""))
+    for name, (err, b, kernel, plain) in results.items():
+        t = time_pair(name + (" (5-step chain)" if name == "atrous" else ""), kernel, plain)
+        # no single PyTorch call computes these edge-stopping stencils
+        timed[name] = {"max_abs_err": err, **t, **b, "library_ms": None}
+        log(f"  {name}: bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
     return timed
 
 
-def run_frames(use_pallas: str):
-    """FRAMES frames of the 1080p Cornell box with a small orbit between
-    frames. Returns (last FrameOutputs, per-frame stage milliseconds)."""
-    from svgf_tpu_torch.config import RenderConfig, SVGFConfig
-    from svgf_tpu_torch.core.camera import orbit_frame
-    from svgf_tpu_torch.render.pipeline import Renderer
+# ---------------------------------------------------------------------------
+# K5, K6: the intersectors
+# ---------------------------------------------------------------------------
+
+
+def compare_hits(label, got, want, t0, active=None):
+    """Kernel (got) against plain (want) on the active lanes: whether each
+    lane hits and, where both hit, the winning triangle; dist/u/v where
+    they agree, dist where both hit. Inactive lanes report t0 on both.
+    Returns the numbers the callers hold to their bars."""
+    if active is not None:
+        assert torch.equal(got.dist[~active], t0[~active]), label
+        assert torch.equal(want.dist[~active], t0[~active]), label
+        got, want, t0 = (type(got)(*(x[active] for x in got)), type(want)(*(x[active] for x in want)),
+                         t0[active])
+    hit, hit_got = want.dist < t0, got.dist < t0
+    same = (got.prim == want.prim) & (got.instance == want.instance)
+    agree = (hit == hit_got) & (~hit | same)
+    both = hit & hit_got
+    err = max(float((getattr(got, f) - getattr(want, f))[agree].abs().max()) for f in ("dist", "u", "v"))
+    rel = ((got.dist - want.dist).abs() / want.dist)[both]
+    stats = {
+        "lanes": int(t0.numel()), "hits": int(hit.sum()), "hit_sets_differ": int((hit != hit_got).sum()),
+        "winners_differ": int((~agree).sum()), "agree": float(agree.float().mean()),
+        "max_abs_err": err,
+        "both_hit_max_dist_err": float((got.dist - want.dist)[both].abs().max()) if both.any() else 0.0,
+        "rel_max": float(rel.max()) if both.any() else 0.0,
+        "rel_below_1e-5": float((rel < 1e-5).float().mean()) if both.any() else 1.0,
+    }
+    log(f"  {label}: " + ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+                                   for k, v in stats.items()))
+    return stats
+
+
+def check_dense_kernel() -> dict:
+    """K5 against intersect_dense on the 1080p Cornell box. Bars: hit/miss
+    sets and winners agree on >= 99.99% of the active lanes (a ray through
+    an edge shared by two triangles may pick either under another
+    rounding); where they agree dist/u/v to 1e-5; where both hit, dist to
+    1e-3."""
+    from svgf_tpu_torch.kernels import intersect as KI
+    from svgf_tpu_torch.ops.geometry import normalize
+    from svgf_tpu_torch.ops.intersect import intersect_dense, start_dist
+    from svgf_tpu_torch.render.gbuffer import camera_rays
     from svgf_tpu_torch.scenes.cornell import cornell_box
 
-    cfg = RenderConfig(
-        width=W, height=H, svgf=SVGFConfig(spatial_filter_steps=5), state_dtype="float16",
-        keep_taps=False, use_pallas=use_pallas, use_pallas_intersect="off",
-        trace_chunks=TRACE_CHUNKS,
+    arrays = cornell_box(aspect=W / H).flatten(device="cuda")
+    n_tris = arrays.meta.n_world_tris
+    R = H * W
+    ro_p, rd_p = camera_rays(arrays.cam_frame[0], arrays.cam_proj[0], H, W)
+    rng = np.random.default_rng(1)
+    ro_s = cuda(rng.uniform(-0.95, 0.95, (R, 3)))
+    rd_np = rng.standard_normal((R, 3))
+    rd_s = normalize(cuda(rd_np))
+    rd_np[:, 1] = np.abs(rd_np[:, 1])
+    rd_up = normalize(cuda(rd_np))        # towards the ceiling light
+    active = cuda(rng.uniform(size=R) < 0.7, torch.bool)
+    tmax = cuda(rng.uniform(0.2, 2.5, R))
+
+    log(f"K5 intersect_dense vs plain, Cornell ({n_tris} triangles), {R} rays a case:")
+    cases = (
+        ("primary", ro_p, rd_p, {}),
+        ("secondary", ro_s, rd_s, {}),
+        ("secondary, active", ro_s, rd_s, {"active": active}),
+        ("secondary, tmax", ro_s, rd_s, {"tmax": tmax}),
+        ("secondary, only_instance=3", ro_s, rd_up, {"only_instance": 3}),
     )
-    r = Renderer(cornell_box(aspect=16 / 9), cfg, device="cuda")
+    errs = []
+    for label, ro, rd, kw in cases:
+        got = KI.intersect_dense_kernel(arrays, ro, rd, **kw)
+        want = intersect_dense(arrays, ro, rd, **kw)
+        t0 = start_dist(kw.get("tmax"), R, ro.device)
+        st = compare_hits(label, got, want, t0, kw.get("active"))
+        assert st["agree"] >= 0.9999, (label, st)
+        assert st["max_abs_err"] <= 1e-5, (label, st)
+        assert st["both_hit_max_dist_err"] <= 1e-3, (label, st)
+        if "only_instance" in kw:
+            assert st["hits"] > 0 and bool((got.instance[got.dist < t0] == 3).all()), label
+        errs.append(st["max_abs_err"])
+
+    # timed at the main path's call: one bounce's batched [shadow | bsdf]
+    # rays at 2 lane chunks is 2 x 1,036,800 = 2,073,600 rays with a mask
+    kernel = lambda: KI.intersect_dense_kernel(arrays, ro_s, rd_s, active=active)
+    plain = lambda: intersect_dense(arrays, ro_s, rd_s, active=active)
+    t = time_pair("secondary, active (wrapper: select + recompute)", kernel, plain)
+    r = KI._rays(ro_s, rd_s, active, None)
+    select = cuda_ms(lambda: KI.dense_select(arrays, *r))
+    n_active = int(active.sum())
+    log(f"  the select kernel alone: {select:.4f} ms; {n_active} active rays, "
+        f"{R / (t['ms'] * 1e3):.1f} Mrays/s through the wrapper")
+    out = kernel()
+    scene_bytes = n_tris * (9 + 3) * 4
+    b = bound(nbytes(ro_s, rd_s, active, *out) + scene_bytes,
+              n_active * n_tris * OPS_MT + R * OPS_RECOMPUTE)
+    log(f"  bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bound_bytes']} B, {b['bound_ops']} ops)")
+    # no single PyTorch call computes a nearest ray-triangle hit
+    return {"max_abs_err": max(errs), **t, **b, "library_ms": None, "select_ms": select}
+
+
+def check_clustered_kernel(scene) -> dict:
+    """K6 against traverse_scene_bvh on the stress terrain. Bars
+    (tests/test_clustered.py:92-96): hit/miss sets equal; relative dist
+    error below 2e-3 everywhere and below 1e-5 on >= 99% of hits; and, as
+    for K5, the winning triangle agrees on >= 99.99% of the lanes (both
+    walks compute t bit for bit alike, so only an exact tie may differ)."""
+    from svgf_tpu_torch.kernels import intersect as KI
+    from svgf_tpu_torch.ops.geometry import normalize
+    from svgf_tpu_torch.ops.intersect import start_dist, traverse_scene_bvh
+    from svgf_tpu_torch.render.gbuffer import camera_rays
+    from svgf_tpu_torch.render.pathtrace import make_block_order
+
+    t_host = time.perf_counter()
+    arrays = scene.flatten(device="cuda")
+    torch.cuda.synchronize()
+    log(f"K6 stress_scene(n={STRESS_N}): flatten (NumPy BVH build) {time.perf_counter() - t_host:.3f} s "
+        f"host; {arrays.meta.n_world_tris} world triangles, soup {tuple(arrays.world_tris9.shape)}, "
+        f"{arrays.wbvh_skip.shape[0]} scene-BVH nodes, {arrays.world_cluster_bounds.shape[0]} clusters")
+    assert arrays.meta.soup_leaf_order and arrays.meta.n_world_tris == 2 * (STRESS_N - 1) ** 2 + 2
+
+    fwd, _, lanes = make_block_order(H, W)
+    ro_p, rd_p = camera_rays(arrays.cam_frame[0], arrays.cam_proj[0], H, W)
+    ro_p, rd_p = fwd(ro_p), fwd(rd_p)
+    rng = np.random.default_rng(2)
+    n = SCRAMBLED
+    ro_s = cuda(rng.uniform((-1.8, 0.6, -1.8), (1.8, 1.4, 1.8), (n, 3)))
+    rd_s = normalize(cuda(rng.standard_normal((n, 3))))
+    active = cuda(rng.uniform(size=n) < 0.7, torch.bool)
+    tmax = cuda(rng.uniform(0.5, 3.0, n))
+    ro_up = cuda(np.stack([rng.uniform(-1.2, 1.2, n), np.full(n, 0.5), rng.uniform(-1.2, 1.2, n)], 1))
+    rd_up = cuda(np.tile([[0.0, 1.0, 0.0]], (n, 1)))   # axis-aligned: 0 * inf in the slab test
+
+    log(f"K6 intersect_clustered vs plain walk, {lanes} primary rays, {n} scrambled:")
+    cases = (
+        ("primary (1080p, 64x64 blocks)", ro_p, rd_p, {}),
+        ("scrambled", ro_s, rd_s, {}),
+        ("scrambled, active + tmax", ro_s, rd_s, {"active": active, "tmax": tmax}),
+        ("straight up, only_instance=1", ro_up, rd_up, {"only_instance": 1}),
+    )
+    errs = []
+    for label, ro, rd, kw in cases:
+        got = KI.intersect_clustered_kernel(arrays, ro, rd, **kw)
+        want = traverse_scene_bvh(arrays, ro, rd, **kw)
+        t0 = start_dist(kw.get("tmax"), ro.shape[0], ro.device)
+        st = compare_hits(label, got, want, t0, kw.get("active"))
+        assert st["hits"] > 0 and st["hit_sets_differ"] == 0, (label, st)
+        assert st["rel_max"] < 2e-3 and st["rel_below_1e-5"] >= 0.99, (label, st)
+        assert st["agree"] >= 0.9999, (label, st)
+        if "only_instance" in kw:
+            assert bool((got.instance[got.dist < t0] == 1).all()), label
+        errs.append(st["max_abs_err"])
+
+    # node visits and triangle tests a ray, counted by the kernel itself
+    r = KI._rays(ro_p, rd_p, None, None)
+    _, _, st = KI.bvh_select(arrays, *r, stats=True)
+    visits, tests = st[:, 0].long(), st[:, 1].long()
+    log(f"  primary: node visits a ray mean {float(visits.float().mean()):.2f} max {int(visits.max())}, "
+        f"triangle tests mean {float(tests.float().mean()):.2f} max {int(tests.max())}")
+
+    kernel = lambda: KI.intersect_clustered_kernel(arrays, ro_p, rd_p)
+    plain = lambda: traverse_scene_bvh(arrays, ro_p, rd_p)
+    t = time_pair("primary (wrapper: walk + recompute)", kernel, plain, plain_iters=2, plain_warmup=1)
+    select = cuda_ms(lambda: KI.bvh_select(arrays, *r))
+    rs = KI._rays(ro_s, rd_s, None, None)
+    scr = cuda_ms(lambda: KI.intersect_clustered_kernel(arrays, ro_s, rd_s))
+    scr_select = cuda_ms(lambda: KI.bvh_select(arrays, *rs))
+    _, _, sst = KI.bvh_select(arrays, *rs, stats=True)
+    log(f"  primary: {lanes / (t['ms'] * 1e3):.1f} Mrays/s through the wrapper, walk kernel alone "
+        f"{select:.4f} ms ({lanes / (select * 1e3):.1f} Mrays/s)")
+    log(f"  scrambled: {scr:.4f} ms, {n / (scr * 1e3):.1f} Mrays/s through the wrapper, walk "
+        f"kernel alone {scr_select:.4f} ms ({n / (scr_select * 1e3):.1f} Mrays/s); node visits a "
+        f"ray mean {float(sst[:, 0].float().mean()):.2f} max {int(sst[:, 0].max())}, triangle "
+        f"tests mean {float(sst[:, 1].float().mean()):.2f}")
+    out = kernel()
+    scene_bytes = nbytes(arrays.wbvh_bounds6, arrays.wbvh_skip, arrays.wbvh_leaf_tri,
+                         arrays.world_tris9, arrays.world_tri_inst, arrays.world_tri_prim,
+                         arrays.world_tri_mat)
+    b = bound(nbytes(ro_p, rd_p, *out) + scene_bytes,
+              int(visits.sum()) * OPS_SLAB + int(tests.sum()) * OPS_MT + lanes * OPS_RECOMPUTE)
+    log(f"  bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bound_bytes']} B, {b['bound_ops']} ops)")
+    # no single PyTorch call computes a nearest ray-triangle hit
+    return {"max_abs_err": max(errs), **t, **b, "library_ms": None, "select_ms": select}
+
+
+# ---------------------------------------------------------------------------
+# the main path and the stress path
+# ---------------------------------------------------------------------------
+
+
+def profile_step(label, renderer, frame_ms: float) -> None:
+    """One more frame under torch.profiler: the device's busy time, against
+    the profiled wall time (the profiler slows the host) and against the
+    unprofiled frame's `frame_ms`, and the operations with the most device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):   # the tracer's start-up, not timed
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=activities) as prof:
+        renderer.step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    log(f"{label} profiled frame: device busy {busy:.3f} ms in {len(kernels)} device kernels; "
+        f"profiled wall {wall:.3f} ms ({100 * busy / wall:.1f}% busy), unprofiled frame "
+        f"{frame_ms:.3f} ms ({100 * busy / frame_ms:.1f}% busy)")
+    top = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:10]
+    for e in top:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+
+
+def run_frames(scene, orbit, h, w, use_pallas: str, chunks: int):
+    """FRAMES frames through Renderer.step, the camera set by orbit(f)
+    (None keeps it) before frame f. Returns (last FrameOutputs, per-frame
+    stage milliseconds, the Renderer)."""
+    from svgf_tpu_torch.config import RenderConfig, SVGFConfig
+    from svgf_tpu_torch.render.pipeline import Renderer
+
+    cfg = RenderConfig(
+        width=w, height=h, svgf=SVGFConfig(spatial_filter_steps=5), state_dtype="float16",
+        keep_taps=False, use_pallas=use_pallas, trace_chunks=chunks,
+    )
+    cam0 = scene.cameras[0]
+    r = Renderer(scene, cfg, device="cuda")
     stages = []
     out = None
     for f in range(FRAMES):
-        if f:
-            r.update_camera(orbit_frame([0.0, 0.0, 0.0], 3.4, theta=0.01 * f, phi=0.0))
+        if orbit(f) is not None:
+            r.update_camera(orbit(f))
         events = {}
         torch.cuda.synchronize()
         out = r.step(events)
@@ -229,41 +522,108 @@ def run_frames(use_pallas: str):
         ms = {b: events[a].elapsed_time(events[b]) for a, b in zip(names, names[1:])}
         ms["frame"] = events[names[0]].elapsed_time(events[names[-1]])
         stages.append(ms)
-    return out, stages
+    scene.cameras[0] = cam0   # the next run starts from the same camera
+    return out, stages, r
+
+
+def expected_launches(intersector: str, chunks: int) -> dict:
+    """Kernel launches per FRAMES frames, derived from render_frame: one of
+    each filter stage, one a-trous launch a step; the intersector once per
+    G-buffer chunk and once per bounce and trace chunk (the primary hit
+    comes from the G-buffer)."""
+    from svgf_tpu_torch.config import RenderConfig
+
+    cfg = RenderConfig()
+    per_frame = chunks * (1 + cfg.tracing.batch * (cfg.tracing.bounces + (not cfg.hybrid_primary)))
+    launches = {"temporal": FRAMES, "moments": FRAMES, "atrous": 5 * FRAMES, "taa": FRAMES,
+                "intersect_dense": 0, "intersect_clustered": 0}
+    launches[intersector] = FRAMES * per_frame
+    return launches
+
+
+def check_image(out, h, w, label):
+    final = out.final
+    assert final.shape == (h, w, 3), final.shape
+    assert bool(torch.isfinite(final).all()), f"{label}: non-finite final image"
+    assert float(final.min()) >= 0.0 and float(final.max()) <= 1.0, f"{label}: final image outside [0, 1]"
+    m = out.metrics
+    log(f"{label} metrics (frame {FRAMES}): coverage {float(m.coverage_pct):.2f}% disoccluded "
+        f"{float(m.disoccluded_pct):.2f}% mean history {float(m.mean_history):.3f} "
+        f"rays_traced {int(m.rays_traced)}")
+    assert float(m.coverage_pct) > 50.0, f"{label}: the camera does not see the scene"
+    assert float(final.mean()) > 0.05, f"{label}: the final image is black"
+
+
+def compare_frames(label, got, want):
+    """Frame FRAMES through the kernels against the plain versions: mean
+    < 1e-3 and at most 0.01% of pixels above 5e-2. A primary ray through
+    an edge shared by two triangles may pick the other one (the kernel and
+    the plain sweep round alike but need not agree on such ties), and the
+    variance-guided filters spread such a flip over a few neighbours."""
+    d = (got.final - want.final).abs()
+    over = int((d.amax(-1) > 5e-2).sum())
+    n = d.shape[0] * d.shape[1]
+    log(f"{label} frame {FRAMES} final, kernels vs plain on the card: max {float(d.max()):.3e} "
+        f"mean {float(d.mean()):.3e}, {over} of {n} pixels above 5e-2")
+    assert float(d.mean()) < 1e-3 and over <= 1e-4 * n, (label, float(d.mean()), over)
+
+
+def log_stages(label, stages):
+    med = {k: statistics.median(s[k] for s in stages[1:]) for k in stages[0]}
+    log(f"{label} frame ms (median of frames 2-{FRAMES}): {med['frame']:.3f}; per stage: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in med.items() if k != "frame"))
+    log(f"{label} frame ms, every frame: {[round(s['frame'], 3) for s in stages]}")
 
 
 def check_main_path() -> dict:
-    from svgf_tpu_torch.kernels import filter as K
+    from svgf_tpu_torch.core.camera import orbit_frame
+    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
+    from svgf_tpu_torch.scenes.cornell import cornell_box
 
-    K.reset_launches()
-    out, stages = run_frames("on")
-    launches = dict(K.LAUNCHES)
-    log(f"main path launches over {FRAMES} frames: {launches}")
-    expect = {"temporal": FRAMES, "moments": FRAMES, "atrous": 5 * FRAMES, "taa": FRAMES}
+    scene = cornell_box(aspect=W / H)
+    orbit = lambda f: orbit_frame([0.0, 0.0, 0.0], 3.4, theta=0.01 * f, phi=0.0) if f else None
+    reset_launches()
+    out, stages, r = run_frames(scene, orbit, H, W, "on", TRACE_CHUNKS)
+    launches = dict(LAUNCHES)
+    profile_step("Cornell 1080p kernels", r, statistics.median(s["frame"] for s in stages[1:]))
+    log(f"main path (Cornell 1080p) launches over {FRAMES} frames: {launches}")
+    expect = expected_launches("intersect_dense", TRACE_CHUNKS)
     assert launches == expect, (launches, expect)
+    check_image(out, H, W, "Cornell")
 
-    final = out.final
-    assert final.shape == (H, W, 3), final.shape
-    assert bool(torch.isfinite(final).all()), "non-finite final image"
-    assert float(final.min()) >= 0.0 and float(final.max()) <= 1.0, "final image outside [0, 1]"
-    m = out.metrics
-    log(f"metrics (frame {FRAMES}): coverage {float(m.coverage_pct):.2f}% disoccluded "
-        f"{float(m.disoccluded_pct):.2f}% mean history {float(m.mean_history):.3f} "
-        f"rays_traced {int(m.rays_traced)}")
-    assert float(m.coverage_pct) > 50.0, "the camera does not see the box"
-    assert float(final.mean()) > 0.05, "the final image is black"
+    plain_out, plain_stages, _ = run_frames(scene, orbit, H, W, "off", TRACE_CHUNKS)
+    compare_frames("Cornell 1080p", out, plain_out)
+    log_stages("Cornell kernels", stages)
+    log_stages("Cornell plain", plain_stages)
+    return launches
 
-    plain_out, plain_stages = run_frames("off")
-    d = (final - plain_out.final).abs()
-    log(f"frame {FRAMES} final, kernels vs plain on the card: max {float(d.max()):.3e} "
-        f"mean {float(d.mean()):.3e}")
-    assert float(d.mean()) < 1e-3 and float(d.max()) <= 5e-2, (float(d.mean()), float(d.max()))
 
-    for label, st in (("kernels", stages), ("plain", plain_stages)):
-        med = {k: statistics.median(s[k] for s in st[1:]) for k in st[0]}
-        log(f"{label} frame ms (median of frames 2-{FRAMES}): {med['frame']:.3f}; per stage: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in med.items() if k != "frame"))
-        log(f"{label} frame ms, every frame: {[round(s['frame'], 3) for s in st]}")
+def check_stress_path(scene) -> dict:
+    from svgf_tpu_torch.core.camera import orbit_frame
+    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
+
+    # the stress camera's azimuth, 3.0 from the centre at 0.6 rad elevation
+    # (62% of the view is terrain), moving 0.01 rad a frame like the main path
+    orbit = lambda f: orbit_frame([0.0, 0.0, 0.0], 3.0, theta=math.pi / 4 + 0.01 * f, phi=0.6)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out, stages, r = run_frames(scene, orbit, H, W, "on", TRACE_CHUNKS)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    profile_step("stress 1080p kernels", r, statistics.median(s["frame"] for s in stages[1:]))
+    log(f"stress path (terrain 1080p, trace_chunks={TRACE_CHUNKS}) launches over {FRAMES} frames: "
+        f"{launches}; peak memory {peak:.1f} MiB")
+    expect = expected_launches("intersect_clustered", TRACE_CHUNKS)
+    assert launches == expect, (launches, expect)
+    check_image(out, H, W, "stress")
+    log_stages("stress kernels", stages)
+
+    # kernels against plain at 480x270: the plain walk is a host loop
+    small, _, _ = run_frames(scene, orbit, SMALL_H, SMALL_W, "on", 1)
+    small_plain, small_plain_stages, _ = run_frames(scene, orbit, SMALL_H, SMALL_W, "off", 1)
+    check_image(small, SMALL_H, SMALL_W, "stress 480x270")
+    compare_frames("stress 480x270", small, small_plain)
+    log_stages("stress 480x270 plain", small_plain_stages)
     return launches
 
 
@@ -272,13 +632,24 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_kernels()
-    timed = check_kernels()
+    timed = check_filter_kernels()
+    timed["intersect_dense"] = check_dense_kernel()
+
+    from svgf_tpu_torch.scenes.stress import stress_scene
+
+    stress = stress_scene(n=STRESS_N, aspect=W / H)
+    timed["intersect_clustered"] = check_clustered_kernel(stress)
     launches = check_main_path()
+    stress_launches = check_stress_path(stress)
+    launches["intersect_clustered"] = stress_launches["intersect_clustered"]
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **timed[name]}
+         "launches": launches[name], **{k: timed[name][k] for k in keys}}
         for name, src, rep in KERNELS
     ]
+    assert all(k["launches"] > 0 for k in kernels), kernels
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,18 +2,18 @@
 
 The same renderer as svgf_tpu (a hybrid 1spp path tracer with a G-buffer
 pass and the SVGF denoiser), written as plain torch functions with the
-filter stencils as hand-written CUDA kernels (csrc/, kernels/). Module
-paths mirror svgf_tpu's, so each port module sits where its JAX
-counterpart does; svgf_tpu stays the reference the tests hold it against.
-The port never imports JAX: from svgf_tpu it uses only the JAX-free
-`config` and `accel` modules.
+filter stencils and the two intersectors as hand-written CUDA kernels
+(csrc/, kernels/). Module paths mirror svgf_tpu's, so each port module
+sits where its JAX counterpart does; svgf_tpu stays the reference the
+tests hold it against. The port imports neither JAX nor svgf_tpu: it keeps
+its own copies of the JAX-free modules it needs (config, accel).
 
     from svgf_tpu_torch.config import RenderConfig
     from svgf_tpu_torch.scenes.cornell import cornell_box
     from svgf_tpu_torch.render.pipeline import Renderer
 
-    r = Renderer(cornell_box(aspect=16 / 9), RenderConfig(width=640, height=360), device="cuda")
-    out = r.step()
+    r = Renderer(cornell_box(aspect=16 / 9), RenderConfig(width=640, height=360))
+    out = r.step()   # on the card; Renderer(..., device="cpu") runs on the CPU
 """
 
 __version__ = "0.1.0"

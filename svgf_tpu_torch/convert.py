@@ -3,8 +3,10 @@
 Given svgf_tpu's `SceneArrays` or legacy-layout `TemporalState` with NumPy
 leaves (`jax.tree.map(np.asarray, x)`; the scene's `SceneMeta` may be any
 object with the same attributes), these return the port's records on
-`device`, values and dtypes unchanged. Both packages then compute on
-identical inputs, which is what the tests compare.
+`device` (the card unless the caller asks for the CPU), every field with
+its values and dtype unchanged, the large-scene ones (cluster bounds,
+`wbvh_*`) too. Both packages then compute on identical inputs, which is
+what the tests compare.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x), device=device)  # a copy: JAX's buffers are read-only
 
 
-def scene_arrays(arrays, device="cpu") -> SceneArrays:
+def scene_arrays(arrays, device="cuda") -> SceneArrays:
     meta = SceneMeta(**{f.name: getattr(arrays.meta, f.name)
                         for f in dataclasses.fields(SceneMeta)})
     return SceneArrays(meta=meta, **{
@@ -30,7 +32,7 @@ def scene_arrays(arrays, device="cpu") -> SceneArrays:
     })
 
 
-def temporal_state(state, device="cpu") -> TemporalState:
+def temporal_state(state, device="cuda") -> TemporalState:
     if state.color is None:
         raise ValueError("a planar-layout state has no legacy fields to convert")
     return TemporalState(

@@ -4,11 +4,14 @@ The host classes are NumPy copies of svgf_tpu/core/scene.py (Material,
 Shape, Instance, Environment, Scene, SceneMeta): that module imports JAX.
 `Scene.flatten(device=...)` runs the same NumPy build and ends in
 `torch.as_tensor` where the JAX version ends in `jnp.asarray`, so both
-packages hold bit-identical scene data (tests/test_torch_convert.py).
+packages hold bit-identical scene data when both build their BVHs with
+the NumPy builder (tests/test_torch_convert.py, tests/test_torch_intersect.py).
 
-Scenes whose world triangle soup exceeds `ops.intersect.DENSE_MAX_TRIS`
-(the clustered soup layout and the stitched scene BVH), and scenes with
-real texture sampling, are not ported yet: `flatten` raises for them.
+Scenes over `ops.intersect.DENSE_MAX_TRIS` world triangles get svgf_tpu's
+large-scene layout: the soup in BLAS-leaf order, padded to whole
+superclusters, with cluster bounds and the stitched world-space scene BVH
+(`wbvh_*`). Scenes with real texture sampling are not ported yet:
+`flatten` raises for them.
 """
 
 from __future__ import annotations
@@ -19,7 +22,10 @@ import enum
 import numpy as np
 import torch
 
-from svgf_tpu.accel.bvh import BLAS, FlatBVH, _transform_aabbs, build_blas, flatten_blases
+from svgf_tpu_torch.accel.bvh import (
+    BLAS, FlatBVH, _transform_aabbs, build_blas, build_scene_bvh, flatten_blases,
+)
+from svgf_tpu_torch.accel.clusters import CLUSTER_TRIS, SUPER_CLUSTERS, compute_cluster_bounds
 from svgf_tpu_torch.core.lights import build_lights
 from svgf_tpu_torch.ops.intersect import DENSE_MAX_TRIS
 
@@ -89,8 +95,7 @@ class Shape:
         if self.uvs is None:
             self.uvs = np.zeros((P.shape[0], 2), dtype=np.float32)
         if self.tangents is None:
-            # svgf_tpu's NumPy reference method (its optional native
-            # builder accelerates the same computation)
+            # svgf_tpu's NumPy reference method
             self.tangents = _lengyel_tangents(
                 P, np.asarray(self.normals), np.asarray(self.uvs), F
             )
@@ -215,14 +220,15 @@ class SceneArrays:
     bvh_leaf_tri: torch.Tensor  # (N,) i32
     tri_verts9: torch.Tensor    # (9, T) f32
     world_tris9: torch.Tensor   # (9, TW) f32 world-space soup, padded to 128
+                                # (large scenes: BLAS-leaf order, padded to 2048)
     world_tri_inst: torch.Tensor  # (TW,) i32, -1 = padding
     world_tri_mat: torch.Tensor   # (TW,) i32
     world_tri_prim: torch.Tensor  # (TW,) i32
-    world_cluster_bounds: torch.Tensor  # (1, 8) placeholder
-    world_sclust_bounds: torch.Tensor   # (1, 8) placeholder
-    wbvh_bounds6: torch.Tensor  # (6, 1) placeholder
-    wbvh_skip: torch.Tensor     # (1,) placeholder
-    wbvh_leaf_tri: torch.Tensor # (1,) placeholder
+    world_cluster_bounds: torch.Tensor  # (C, 8) large scenes, else (1, 8) zeros
+    world_sclust_bounds: torch.Tensor   # (C/16, 8) large scenes, else (1, 8) zeros
+    wbvh_bounds6: torch.Tensor  # (6, NW) scene BVH boxes (large scenes), else (6, 1)
+    wbvh_skip: torch.Tensor     # (NW,) i32 skip links
+    wbvh_leaf_tri: torch.Tensor # (NW,) i32 soup column at leaves, -1 internal
     inst_aabb_min: torch.Tensor # (I, 3) f32
     inst_aabb_max: torch.Tensor # (I, 3) f32
     shape_node_start: torch.Tensor  # (S,) i32
@@ -272,6 +278,18 @@ class SceneArrays:
         return [f.name for f in dataclasses.fields(SceneArrays) if f.name != "meta"]
 
 
+def target_device(device) -> torch.device:
+    """`device` as a torch.device; raises for a CUDA device when torch sees
+    no card (the port never falls back to the CPU on its own)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for, but torch.cuda.is_available() is false; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
 def as_device_tensor(x, dtype, device) -> torch.Tensor:
     """A host array as a contiguous device tensor of `dtype` (a NumPy dtype)."""
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dtype))).to(device)
@@ -296,8 +314,12 @@ class Scene:
                 s.preprocess()
         return self
 
-    def flatten(self, device="cpu") -> SceneArrays:
-        """Build every flattened device tensor (reference scene::PreProcess)."""
+    def flatten(self, device="cuda") -> SceneArrays:
+        """Build every flattened tensor on `device` (reference
+        scene::PreProcess). The default is the card; device="cpu" runs on
+        the CPU. Shapes keep their BVHs, so a second flatten of the same
+        scene does not rebuild them."""
+        device = target_device(device)
         if self.textures_enabled and self.textures:
             raise NotImplementedError(
                 "scene-texture sampling is not ported to svgf_tpu_torch yet"
@@ -343,14 +365,11 @@ class Scene:
         cam_proj = np.stack([c.projection for c in self.cameras])
 
         total_world = sum(self.shapes[i.shape].n_triangles for i in self.instances)
-        if total_world > DENSE_MAX_TRIS:
-            raise NotImplementedError(
-                f"{total_world} world triangles: scenes over {DENSE_MAX_TRIS} "
-                "need the clustered soup and scene BVH, not ported to "
-                "svgf_tpu_torch yet"
-            )
-        # world-space triangle soup for the dense intersector, in instance
-        # order (svgf_tpu keeps this order for every scene of this size)
+        # Large scenes: each instance's triangles in BLAS-leaf (DFS) order,
+        # so consecutive soup columns are spatially local (svgf_tpu's
+        # clustered layout, accel/clusters.py). Small scenes keep the
+        # original order, which the dense intersector's tie-break sees.
+        soup_leaf_order = total_world > DENSE_MAX_TRIS
         ws9, ws_inst, ws_mat, ws_prim, inst_ws = [], [], [], [], []
         cursor = 0
         for i, inst in enumerate(self.instances):
@@ -358,6 +377,10 @@ class Scene:
             t = np.asarray(inst.transform, np.float64)
             pw = sh.tri_pos.astype(np.float64) @ t[:3, :3].T + t[:3, 3]  # (F,3,3)
             prim = np.arange(sh.n_triangles, dtype=np.int32)
+            if soup_leaf_order:
+                order = sh.blas.tri_order.astype(np.int64)
+                pw = pw[order]
+                prim = prim[order]
             ws9.append(pw.reshape(pw.shape[0], 9).T.astype(np.float32))
             n = sh.n_triangles
             ws_inst.append(np.full(n, i, np.int32))
@@ -367,7 +390,10 @@ class Scene:
             cursor += n
         world9 = np.concatenate(ws9, axis=1) if ws9 else np.zeros((9, 0), np.float32)
         tw = world9.shape[1]
-        tw_pad = max(128, -(-tw // 128) * 128)
+        # the large-scene soup is padded to whole superclusters, whose
+        # padding clusters get never-hit bounds
+        grain = CLUSTER_TRIS * SUPER_CLUSTERS if soup_leaf_order else 128
+        tw_pad = max(grain, -(-tw // grain) * grain)
         pad = tw_pad - tw
         world9 = np.pad(world9, ((0, 0), (0, pad)))
         w_inst = np.pad(np.concatenate(ws_inst) if ws_inst else np.zeros(0, np.int32),
@@ -376,8 +402,11 @@ class Scene:
                        (0, pad))
         w_prim = np.pad(np.concatenate(ws_prim) if ws_prim else np.zeros(0, np.int32),
                         (0, pad))
-        cb_np = np.zeros((1, 8), np.float32)
-        sb_np = np.zeros((1, 8), np.float32)
+        if soup_leaf_order:
+            cb_np, sb_np = compute_cluster_bounds(world9, w_inst)
+        else:
+            cb_np = np.zeros((1, 8), np.float32)
+            sb_np = np.zeros((1, 8), np.float32)
 
         # per-instance world AABBs (8-corner transform of the BLAS root box,
         # reference scene::CalculateInstanceTransform, Scene.cpp:355-373)
@@ -400,9 +429,23 @@ class Scene:
             i_lo = np.zeros((0, 3), np.float32)
             i_hi = np.zeros((0, 3), np.float32)
 
-        wbvh_bounds6 = np.zeros((6, 1), np.float32)
-        wbvh_skip = np.ones((1,), np.int32)
-        wbvh_leaf = np.full((1,), -1, np.int32)
+        has_scene_bvh = tw > DENSE_MAX_TRIS
+        if has_scene_bvh:
+            sbvh = build_scene_bvh(
+                i_lo, i_hi,
+                np.asarray([i.shape for i in self.instances], np.int32),
+                inst_t,
+                [s.blas for s in self.shapes],
+                np.asarray([r[0] for r in inst_ws], np.int32),
+                soup_leaf_order=soup_leaf_order,
+            )
+            wbvh_bounds6 = np.concatenate([sbvh.node_min.T, sbvh.node_max.T], axis=0)
+            wbvh_skip = sbvh.skip
+            wbvh_leaf = sbvh.leaf_tri
+        else:
+            wbvh_bounds6 = np.zeros((6, 1), np.float32)
+            wbvh_skip = np.ones((1,), np.int32)
+            wbvh_leaf = np.full((1,), -1, np.int32)
 
         light_tri_start = tuple(
             int(flat.shape_tri_start[self.instances[int(li)].shape]) if li >= 0 else -1
@@ -430,8 +473,8 @@ class Scene:
             has_opacity=any(m.opacity < 1.0 for m in self.materials),
             textures_enabled=False,
             has_normal_maps=False,
-            has_scene_bvh=False,
-            soup_leaf_order=False,
+            has_scene_bvh=has_scene_bvh,
+            soup_leaf_order=soup_leaf_order,
             mat_types_used=tuple(
                 sorted({int(m.material_type) for m in self.materials})
             ) or (0,),

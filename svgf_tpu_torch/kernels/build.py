@@ -2,9 +2,10 @@
 and load it with ctypes.
 
 The sources have a plain C interface, so nvcc builds them in seconds
-without PyTorch's headers. The library lands in build/svgf_tpu_torch/ at
-the repository root, named by a hash of the sources and flags, and is
-built at first use in a process; nothing is built at import time.
+without PyTorch's headers: one nvcc per source, all started together,
+then one link. The library lands in build/svgf_tpu_torch/ at the
+repository root, named by a hash of the sources and flags, and is built at
+first use in a process; nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "svgf_tpu_torch"
 # round like the plain torch versions they are checked against.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -37,6 +38,8 @@ SIGNATURES = {
     "svgf_atrous_step": [_P] * 5 + [_I, _I, _I, _F, _F, _I, _P],
     "svgf_taa_f32": [_P] * 3 + [_I, _I, _P],
     "svgf_taa_f16": [_P] * 3 + [_I, _I, _P],
+    "svgf_intersect_dense": [_P] * 7 + [_I, _I, _I, _I, _P],
+    "svgf_intersect_bvh": [_P] * 9 + [_I, _I, _I, _P],
 }
 
 
@@ -66,14 +69,30 @@ def build(extra_flags=()) -> tuple[Path, str]:
     if out.exists() and not extra_flags:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    nvcc = nvcc_path()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    texts = [p.communicate()[0] for p in procs]
+    steps = [(p.args[-1], p.returncode, text) for p, text in zip(procs, texts)]
+    if all(rc == 0 for _, rc, _ in steps):
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        steps.append(("link", link.returncode, link.stdout))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    report = "".join(text for _, _, text in steps)
+    failed = [name for name, rc, _ in steps if rc != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{report}")
     os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    return out, report
 
 
 @functools.cache

@@ -4,7 +4,8 @@ Each wrapper has the signature of its plain version in render/svgf.py.
 Given CUDA tensors it checks device, dtype, shape and contiguity, launches
 its kernel on the current stream and raises if the launch fails; given CPU
 tensors it runs the plain version. It never falls back from a CUDA tensor
-to the plain version. `LAUNCHES` counts kernel launches per wrapper.
+to the plain version. `LAUNCHES` (kernels/launch.py) counts kernel
+launches per wrapper.
 
 | wrapper         | kernel           | replaces (svgf_tpu/kernels/planar.py)  |
 |-----------------|------------------|----------------------------------------|
@@ -20,58 +21,18 @@ design does about that.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from svgf_tpu_torch.kernels.build import library
+from svgf_tpu_torch.kernels.launch import LAUNCHES, check, launch, on_cpu, ptr, reset_launches
 from svgf_tpu_torch.render import svgf
 from svgf_tpu_torch.render.svgf import TemporalResult
 from svgf_tpu_torch.render.types import GBuffer
 
-LAUNCHES = {"temporal": 0, "moments": 0, "atrous": 0, "taa": 0}
+__all__ = ["LAUNCHES", "reset_launches", "temporal_filter", "filter_moments",
+           "wavelet_filter", "taa"]
 
 _STATE_TYPES = {torch.float16: "f16", torch.float32: "f32"}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _on_cpu(*tensors) -> bool:
-    """True when every tensor is on the CPU; False when every one is on one
-    CUDA device; raises otherwise."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
-    (dev,) = devices
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    return False
-
-
-def _check(t: torch.Tensor, name: str, shape: tuple, dtypes) -> None:
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected one of {dtypes}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _launch(fn, device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__}: launch failed with CUDA error {err}")
 
 
 def _normal_squarings(phi_normal: float) -> int:
@@ -88,7 +49,7 @@ def _check_gbuffer(gbuf: GBuffer, h: int, w: int, fields) -> None:
               "instance": (h, w), "motion": (h, w, 2)}
     for f in fields:
         dtypes = (torch.int32,) if f == "instance" else (torch.float32,)
-        _check(getattr(gbuf, f), f"gbuf.{f}", shapes[f], dtypes)
+        check(getattr(gbuf, f), f"gbuf.{f}", shapes[f], dtypes)
 
 
 def temporal_filter(current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer, prev_moments,
@@ -102,7 +63,7 @@ def temporal_filter(current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer, prev
     pixel; one thread per pixel reads the fp16 state where it lies, with
     no motion bound and no packed planes."""
     tensors = (current, prev_color, prev_moments, prev_history, *gbuf, *prev_gbuf)
-    if _on_cpu(*tensors):
+    if on_cpu(*tensors):
         return svgf.temporal_filter(current, prev_color, gbuf, prev_gbuf, prev_moments,
                                     prev_history, depth_threshold, normal_threshold,
                                     history_base_length)
@@ -110,21 +71,21 @@ def temporal_filter(current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer, prev
     st = prev_color.dtype
     if st not in _STATE_TYPES:
         raise ValueError(f"prev_color: dtype {st}, expected float16 or float32")
-    _check(current, "current", (h, w, 3), (torch.float32,))
+    check(current, "current", (h, w, 3), (torch.float32,))
     _check_gbuffer(gbuf, h, w, ("depth", "normal", "instance", "motion"))
-    _check(prev_color, "prev_color", (h, w, 4), (st,))
-    _check(prev_gbuf.depth, "prev_gbuf.depth", (h, w), (st,))
-    _check(prev_gbuf.normal, "prev_gbuf.normal", (h, w, 3), (st,))
-    _check(prev_gbuf.instance, "prev_gbuf.instance", (h, w), (torch.int32,))
-    _check(prev_moments, "prev_moments", (h, w, 2), (st,))
-    _check(prev_history, "prev_history", (h, w), (torch.int32,))
+    check(prev_color, "prev_color", (h, w, 4), (st,))
+    check(prev_gbuf.depth, "prev_gbuf.depth", (h, w), (st,))
+    check(prev_gbuf.normal, "prev_gbuf.normal", (h, w, 3), (st,))
+    check(prev_gbuf.instance, "prev_gbuf.instance", (h, w), (torch.int32,))
+    check(prev_moments, "prev_moments", (h, w, 2), (st,))
+    check(prev_history, "prev_history", (h, w), (torch.int32,))
     dev = current.device
     color = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
     moments = torch.empty((h, w, 2), dtype=torch.float32, device=dev)
     history = torch.empty((h, w), dtype=torch.int32, device=dev)
     valid = torch.empty((h, w), dtype=torch.bool, device=dev)
     fn = getattr(library(), f"svgf_temporal_{_STATE_TYPES[st]}")
-    _launch(fn, dev, *map(_ptr, (
+    launch(fn, dev, *map(ptr, (
         current, gbuf.depth, gbuf.normal, gbuf.instance, gbuf.motion, prev_color,
         prev_gbuf.depth, prev_gbuf.normal, prev_gbuf.instance, prev_moments, prev_history,
         color, moments, history, valid)),
@@ -141,15 +102,15 @@ def filter_moments(color, moments, gbuf: GBuffer, history_len, phi_colour: float
     the pass-through pixels (24 B read, 16 B written); a history < 4 pixel
     reads 49 taps of 40 B, shared with its neighbours through L1/L2; one
     thread per pixel, out-of-image taps skipped."""
-    if _on_cpu(color, moments, history_len, gbuf.depth, gbuf.depth_deriv, gbuf.normal):
+    if on_cpu(color, moments, history_len, gbuf.depth, gbuf.depth_deriv, gbuf.normal):
         return svgf.filter_moments(color, moments, gbuf, history_len, phi_colour, phi_normal)
     h, w = color.shape[:2]
-    _check(color, "color", (h, w, 4), (torch.float32,))
-    _check(moments, "moments", (h, w, 2), (torch.float32,))
-    _check(history_len, "history_len", (h, w), (torch.int32,))
+    check(color, "color", (h, w, 4), (torch.float32,))
+    check(moments, "moments", (h, w, 2), (torch.float32,))
+    check(history_len, "history_len", (h, w), (torch.int32,))
     _check_gbuffer(gbuf, h, w, ("depth", "depth_deriv", "normal"))
     out = torch.empty((h, w, 4), dtype=torch.float32, device=color.device)
-    _launch(library().svgf_moments, color.device, *map(_ptr, (
+    launch(library().svgf_moments, color.device, *map(ptr, (
         color, moments, gbuf.depth, gbuf.depth_deriv, gbuf.normal, history_len, out)),
         h, w, phi_colour, phi_normal, _normal_squarings(phi_normal))
     LAUNCHES["moments"] += 1
@@ -165,10 +126,10 @@ def wavelet_filter(img, gbuf: GBuffer, steps: int, phi_colour: float, phi_normal
     Replaces svgf_tpu/kernels/planar.py atrous_chain_planar_v2. Bound by
     memory and L2: 25 taps of 32 B read and 16 B written per pixel and
     step; one thread per pixel, a warp's taps coalesce."""
-    if _on_cpu(img, gbuf.depth, gbuf.depth_deriv, gbuf.normal):
+    if on_cpu(img, gbuf.depth, gbuf.depth_deriv, gbuf.normal):
         return svgf.wavelet_filter(img, gbuf, steps, phi_colour, phi_normal)
     h, w = img.shape[:2]
-    _check(img, "img", (h, w, 4), (torch.float32,))
+    check(img, "img", (h, w, 4), (torch.float32,))
     _check_gbuffer(gbuf, h, w, ("depth", "depth_deriv", "normal"))
     fn = library().svgf_atrous_step
     squarings = _normal_squarings(phi_normal)
@@ -177,7 +138,7 @@ def wavelet_filter(img, gbuf: GBuffer, steps: int, phi_colour: float, phi_normal
     for i in range(steps):
         prev = out
         out = bufs[0] if i == 0 else bufs[1 + (i - 1) % 2]
-        _launch(fn, img.device, *map(_ptr, (prev, gbuf.depth, gbuf.depth_deriv, gbuf.normal, out)),
+        launch(fn, img.device, *map(ptr, (prev, gbuf.depth, gbuf.depth_deriv, gbuf.normal, out)),
                 h, w, 1 << i, phi_colour, phi_normal, squarings)
         LAUNCHES["atrous"] += 1
         if i == 0:
@@ -191,13 +152,13 @@ def taa(filtered, history):
     Replaces svgf_tpu/kernels/planar.py taa_planar. Memory-bound: 9 taps
     of 16 B (shared through L1) and 8 B of fp16 history read, 16 B written
     per pixel; one thread per pixel, edge-clamped taps."""
-    if _on_cpu(filtered, history):
+    if on_cpu(filtered, history):
         return svgf.taa(filtered, history)
     h, w = filtered.shape[:2]
-    _check(filtered, "filtered", (h, w, 4), (torch.float32,))
-    _check(history, "history", (h, w, 4), tuple(_STATE_TYPES))
+    check(filtered, "filtered", (h, w, 4), (torch.float32,))
+    check(history, "history", (h, w, 4), tuple(_STATE_TYPES))
     out = torch.empty((h, w, 4), dtype=torch.float32, device=filtered.device)
     fn = getattr(library(), f"svgf_taa_{_STATE_TYPES[history.dtype]}")
-    _launch(fn, filtered.device, _ptr(filtered), _ptr(history), _ptr(out), h, w)
+    launch(fn, filtered.device, ptr(filtered), ptr(history), ptr(out), h, w)
     LAUNCHES["taa"] += 1
     return out

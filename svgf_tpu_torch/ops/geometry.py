@@ -115,6 +115,41 @@ def sub3(a, b):
     return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
 
 
+def ray_triangle_comp_raw(ro, rd, v0, v1, v2):
+    """Moller-Trumbore on component tuples, UNMASKED: the raw (t, u, v)
+    even outside the triangle or behind the origin. It re-derives
+    differentiable hit parameters for a triangle a kernel already chose;
+    the kernel's hit verdict stays authoritative (svgf_tpu/ops/geometry.py:185)."""
+    e1 = sub3(v1, v0)
+    e2 = sub3(v2, v0)
+    h = cross3(rd, e2)
+    a = dot3(e1, h)
+    parallel = torch.abs(a) < 1e-8
+    f = 1.0 / torch.where(parallel, 1.0, a)
+    s = sub3(ro, v0)
+    u = f * dot3(s, h)
+    q = cross3(s, e1)
+    v = f * dot3(rd, q)
+    t = f * dot3(e2, q)
+    return t, u, v
+
+
+def ray_aabb_comp(ro, inv_rd, lo, hi, tmax):
+    """Slab test on component tuples (svgf_tpu/ops/geometry.py:222).
+    Returns the entry t, or MAX_LENGTH on a miss. torch.maximum/minimum
+    propagate NaN, as jnp's do: an axis where (lo - ro) * inv_rd is 0 * inf
+    misses the box."""
+    tn = torch.full_like(ro[0], -MAX_LENGTH)
+    tf = torch.full_like(ro[0], MAX_LENGTH)
+    for k in range(3):
+        t1 = (lo[k] - ro[k]) * inv_rd[k]
+        t2 = (hi[k] - ro[k]) * inv_rd[k]
+        tn = torch.maximum(tn, torch.minimum(t1, t2))
+        tf = torch.minimum(tf, torch.maximum(t1, t2))
+    hit = (tf >= tn) & (tn < tmax) & (tf > 0)
+    return torch.where(hit, tn, MAX_LENGTH)
+
+
 def ray_triangle_comp(ro, rd, v0, v1, v2):
     """Moller-Trumbore on component tuples. Returns (t, u, v, hit), with
     t = MAX_LENGTH where missed."""

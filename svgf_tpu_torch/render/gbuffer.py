@@ -95,14 +95,22 @@ def pad_rows(x, pad: int):
 
 
 def raster_gbuffer(scene, cam_idx: int, h: int, w: int, num_chunks: int = 1,
-                   mode: str = "off") -> GBuffer:
+                   mode: str = "off", block: bool = False) -> GBuffer:
     """Trace primary visibility and fill every G-buffer channel, in
-    `num_chunks` sequential ray chunks. `mode` is the intersector policy."""
+    `num_chunks` sequential ray chunks. `mode` is the intersector policy;
+    `block` traces the rays in 64x64 pixel blocks, the lane order of large
+    scenes (render.pathtrace.make_block_order)."""
     frame = scene.cam_frame[cam_idx]
     proj = scene.cam_proj[cam_idx]
     view = torch.linalg.inv(frame)
     prev_view = torch.linalg.inv(scene.cam_prev_frame[cam_idx])
     ro, rd = camera_rays(frame, proj, h, w)
+    unblock = None
+    if block:
+        from svgf_tpu_torch.render.pathtrace import make_block_order
+
+        fwd, unblock, _ = make_block_order(h, w)
+        ro, rd = fwd(ro), fwd(rd)
     R = ro.shape[0]
     num_chunks = max(num_chunks, 1)
     rc = -(-R // num_chunks)
@@ -113,9 +121,10 @@ def raster_gbuffer(scene, cam_idx: int, h: int, w: int, num_chunks: int = 1,
                       ro[k * rc:(k + 1) * rc], rd[k * rc:(k + 1) * rc], h, w, mode)
         for k in range(num_chunks)
     ]
-    pos, nrm, motion, z, uv, inst, prim, mat = (
-        torch.cat(f)[:R] if num_chunks > 1 else f[0] for f in zip(*parts)
-    )
+    fields = [torch.cat(f)[:R] if num_chunks > 1 else f[0] for f in zip(*parts)]
+    if unblock is not None:
+        fields = [unblock(f) for f in fields]
+    pos, nrm, motion, z, uv, inst, prim, mat = fields
 
     z = z.reshape(h, w)
     # dFdx/dFdy analogue: forward differences, clamped at the border

@@ -9,9 +9,9 @@ hit. Random draws come from the counter-based RngStream in svgf_tpu's
 call order, so each lane gets the JAX tracer's numbers bit for bit.
 
 Ported: surface scenes with MATTE materials and area lights under the MIS
-estimator. Media, opacity, textures, normal maps, the BSDF/LIGHT/BOTH
-estimators (`_bounce_simple`) and the pixel-block lane order of large
-scenes are not, and raise.
+estimator, with the pixel-block lane order of large scenes. Media,
+opacity, textures, normal maps and the BSDF/LIGHT/BOTH estimators
+(`_bounce_simple`) are not, and raise.
 """
 
 from __future__ import annotations
@@ -87,7 +87,6 @@ def _check_supported(scene, mode) -> None:
         ("opacity pass-through", meta.has_opacity),
         ("scene textures", meta.textures_enabled),
         ("normal maps", meta.has_normal_maps),
-        ("the pixel-block lane order of large scenes", meta.soup_leaf_order),
         (f"sampling mode {SamplingMode(mode).name}", mode != SamplingMode.MIS),
     ) if on]
     if unported:
@@ -151,18 +150,69 @@ def pathtrace(scene, ro, rd, key, lane_ids, bounces: int = 3, clamp: float = 10.
     return radiance * scale[..., None], nrays
 
 
+BLOCK_H, BLOCK_W = 64, 64  # 4,096-pixel blocks of the large-scene lane order
+
+
+def make_block_order(h: int, w: int, bh: int = BLOCK_H, bw: int = BLOCK_W):
+    """Lane reorder: row-major (h*w, ...) <-> (bh x bw)-pixel-block-major
+    (svgf_tpu/render/pathtrace.py:354-385).
+
+    A run of row-major lanes spans whole image rows, so its rays fan out
+    over the whole scene; block-major lanes give each run of 4,096 lanes a
+    compact pixel-block frustum, so the threads of a warp of the scene-BVH
+    kernel walk nearly the same nodes. Edge-padded to block multiples:
+    padded lanes trace duplicate edge pixels and `inv` crops them.
+    Returns (fwd, inv, padded_lane_count)."""
+    hp = -(-h // bh) * bh
+    wp = -(-w // bw) * bw
+
+    def fwd(x):
+        ch = tuple(x.shape[1:])
+        x2 = x.reshape((h, w) + ch)
+        if hp > h:
+            x2 = torch.cat([x2, x2[-1:].expand((hp - h, w) + ch)])
+        if wp > w:
+            x2 = torch.cat([x2, x2[:, -1:].expand((hp, wp - w) + ch)], dim=1)
+        x2 = x2.reshape((hp // bh, bh, wp // bw, bw) + ch)
+        return x2.transpose(1, 2).reshape((hp * wp,) + ch)
+
+    def inv(y):
+        ch = tuple(y.shape[1:])
+        y2 = y.reshape((hp // bh, wp // bw, bh, bw) + ch).transpose(1, 2).reshape((hp, wp) + ch)
+        return y2[:h, :w].reshape((h * w,) + ch)
+
+    return fwd, inv, hp * wp
+
+
 def pathtrace_chunked(scene, ro, rd, key, bounces: int = 3, clamp: float = 10.0,
                       mode: SamplingMode = SamplingMode.MIS, first_hit: Hit | None = None,
-                      num_chunks: int = 1, intersect_mode: str = "off"):
+                      num_chunks: int = 1, intersect_mode: str = "off", lane_ids=None,
+                      block_hw=None):
     """Run the wavefront in `num_chunks` sequential lane chunks: peak memory
     scales with the live lane count. Lanes keep their global ids, so the
     result equals the unchunked one. Padding lanes repeat the last ray and
-    count in rays_traced, as in svgf_tpu."""
+    count in rays_traced, as in svgf_tpu.
+
+    block_hw=(h, w): the lanes are an (h, w) image in row-major order; they
+    are traced in 64x64 pixel blocks (make_block_order) and returned in
+    row-major order. The random draws hash the pixel ids, so per-pixel
+    results do not change; the edge-padding lanes trace and count."""
     R = ro.shape[0]
+    if lane_ids is None:
+        lane_ids = torch.arange(R, dtype=torch.int64, device=ro.device)
+    if block_hw is not None:
+        bh, bw = block_hw
+        assert bh * bw == R, (block_hw, R)
+        fwd, inv, _ = make_block_order(bh, bw)
+        rad, nrays = pathtrace_chunked(
+            scene, fwd(ro), fwd(rd), key, bounces, clamp, mode,
+            None if first_hit is None else Hit(*map(fwd, first_hit)),
+            num_chunks, intersect_mode, lane_ids=fwd(lane_ids),
+        )
+        return inv(rad), nrays
     num_chunks = max(num_chunks, 1)
     rc = -(-R // num_chunks)
     pad = rc * num_chunks - R
-    lane_ids = torch.arange(R, dtype=torch.int64, device=ro.device)
     ro, rd, lane_ids = pad_rows(ro, pad), pad_rows(rd, pad), pad_rows(lane_ids, pad)
     if first_hit is not None:
         first_hit = Hit(*(pad_rows(x, pad) for x in first_hit))

@@ -10,8 +10,11 @@ with the reference's data flow, including the iteration-0 wavelet feedback
 into the next frame's temporal history (Filter.cuh:619-622). The four
 filter stages run either the CUDA kernels (kernels.filter) or their plain
 torch versions (render.svgf), as `kernels.resolve_kernels` decides from
-`config.use_pallas` and the tensors' device. `config.planar_chain` has no
-meaning here and is ignored: the port has one state layout.
+`config.use_pallas` and the tensors' device; the intersector runs its
+kernels (kernels.intersect) or plain versions (ops.intersect) as
+`config.use_pallas_intersect` (else `use_pallas`) decides. Scenes over
+DENSE_MAX_TRIS triangles trace in 64x64 pixel blocks. `config.planar_chain`
+has no meaning here and is ignored: the port has one state layout.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import dataclasses
 import torch
 
 from svgf_tpu_torch.config import DebugOutput, RenderConfig
+from svgf_tpu_torch.core.scene import target_device
 from svgf_tpu_torch.kernels import resolve_kernels
 from svgf_tpu_torch.ops.geometry import to_srgb
 from svgf_tpu_torch.ops.keys import fold_in, key
@@ -100,8 +104,12 @@ def render_frame(scene, state: TemporalState, config: RenderConfig,
     dev = scene.device
     _mark(events, "start")
 
+    # large scenes trace in 64x64 pixel blocks (render.pathtrace.make_block_order)
+    blocked = scene.meta.soup_leaf_order
+
     # ---- 1. Rasterize (primary visibility) ----
-    gbuf = raster_gbuffer(scene, cam, h, w, num_chunks=config.trace_chunks, mode=isect)
+    gbuf = raster_gbuffer(scene, cam, h, w, num_chunks=config.trace_chunks, mode=isect,
+                          block=blocked)
     _mark(events, "gbuffer")
 
     # ---- 2. Trace (batch x 1spp path tracing) ----
@@ -120,6 +128,7 @@ def render_frame(scene, state: TemporalState, config: RenderConfig,
             bounces=config.tracing.bounces, clamp=config.tracing.clamp,
             mode=config.tracing.sampling_mode, first_hit=first_hit,
             num_chunks=config.trace_chunks, intersect_mode=isect,
+            block_hw=(h, w) if blocked else None,
         )
         radiance = radiance + sample / config.tracing.batch
         rays_traced = rays_traced + nr
@@ -193,17 +202,18 @@ def _select_tap(tap: DebugOutput, radiance, tres, moments_out, atrous_out, final
 
 
 class Renderer:
-    """Owns the flattened scene and the cross-frame state on `device`:
-    `out = renderer.step()` per frame, camera moves through
+    """Owns the flattened scene and the cross-frame state on `device` (the
+    card by default; device="cpu" runs on the CPU, and a missing card
+    raises): `out = renderer.step()` per frame, camera moves through
     `update_camera(frame)` (PreviousFrame handling matches EndFrame,
     App.cu:372)."""
 
-    def __init__(self, scene, config: RenderConfig, device="cpu"):
+    def __init__(self, scene, config: RenderConfig, device="cuda"):
         if config.mesh.tiles_y * config.mesh.tiles_x != 1:
             raise NotImplementedError("multi-device meshes are not ported to svgf_tpu_torch yet")
         self.scene = scene
         self.config = config
-        self.device = torch.device(device)
+        self.device = target_device(device)
         for cam in scene.cameras:
             cam.aspect = config.width / config.height
         self.arrays = scene.flatten(device=self.device)

@@ -1,10 +1,12 @@
 """svgf_tpu's data carries across to the port (svgf_tpu_torch.convert).
 
-The Cornell scene flattened by svgf_tpu and converted equals the port's
-own Scene.flatten() bit for bit, field by field and SceneMeta entry by
-entry; and a JAX fp16 TemporalState after two frames, converted, renders
-the third frame as svgf_tpu does, to tests/test_torch_pipeline.py's
-tolerances.
+The port's config dataclasses are svgf_tpu's field for field, and one
+JSON config loads into either package. The Cornell scene flattened by
+svgf_tpu and converted equals the port's own Scene.flatten(device="cpu")
+bit for bit, field by field and SceneMeta entry by entry, when both build
+their BVHs with the NumPy builder; and a JAX fp16 TemporalState after two
+frames, converted, renders the third frame as svgf_tpu does, to
+tests/test_torch_pipeline.py's tolerances.
 """
 
 import dataclasses
@@ -14,10 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from svgf_tpu import config as jconfig
 from svgf_tpu.config import RenderConfig, SVGFConfig, TracingConfig
 from svgf_tpu.core.camera import orbit_frame
 from svgf_tpu.render.pipeline import Renderer as JRenderer
 from svgf_tpu.scenes import cornell_box as j_cornell
+from svgf_tpu_torch import config as tconfig
 from svgf_tpu_torch import convert
 from svgf_tpu_torch.core.scene import SceneArrays, SceneMeta
 from svgf_tpu_torch.render.pipeline import render_frame
@@ -26,11 +30,39 @@ from svgf_tpu_torch.scenes.cornell import cornell_box
 W, H = 32, 24
 
 
+@pytest.mark.parametrize("name", ["TracingConfig", "SVGFConfig", "MeshConfig", "RenderConfig"])
+def test_config_matches_jax(name):
+    """The port's own copy of svgf_tpu/config.py: the same fields with the
+    same defaults, and the enums with the same members."""
+    want, got = getattr(jconfig, name), getattr(tconfig, name)
+    assert [(f.name, f.type) for f in dataclasses.fields(got)] == \
+        [(f.name, f.type) for f in dataclasses.fields(want)]
+    assert dataclasses.asdict(got()) == dataclasses.asdict(want())
+    for enum_name in ("SamplingMode", "DebugOutput"):
+        assert ({m.name: int(m) for m in getattr(tconfig, enum_name)}
+                == {m.name: int(m) for m in getattr(jconfig, enum_name)})
+
+
+def test_config_json_loads_into_either_package():
+    cfg = RenderConfig(width=64, height=36, svgf=SVGFConfig(spatial_filter_steps=5),
+                       tracing=TracingConfig(bounces=2, sampling_mode=jconfig.SamplingMode.BSDF),
+                       debug_output=jconfig.DebugOutput.ATROUS, use_pallas="off",
+                       use_pallas_intersect="on", reproject_max_motion=(4, 31))
+    port = tconfig.RenderConfig.from_json(cfg.to_json())
+    assert port.to_json() == cfg.to_json()
+    assert RenderConfig.from_json(port.to_json()) == cfg
+    assert port.tracing.sampling_mode is tconfig.SamplingMode.BSDF
+    assert port.debug_output is tconfig.DebugOutput.ATROUS
+
+
 @pytest.mark.parametrize("aspect", [1.0, 16 / 9])
-def test_flatten_matches_jax_bitwise(aspect):
+def test_flatten_matches_jax_bitwise(aspect, monkeypatch):
+    # the port builds its BVHs with svgf_tpu's NumPy reference builder
+    # only; svgf_tpu's optional native builder makes another tree
+    monkeypatch.setenv("SVGF_NATIVE", "0")
     want = jax.tree.map(np.asarray, j_cornell(aspect=aspect).flatten())
-    got = cornell_box(aspect=aspect).flatten()
-    conv = convert.scene_arrays(want)
+    got = cornell_box(aspect=aspect).flatten(device="cpu")
+    conv = convert.scene_arrays(want, device="cpu")
     for f in dataclasses.fields(SceneMeta):
         assert getattr(got.meta, f.name) == getattr(want.meta, f.name), f.name
     assert conv.meta == got.meta
@@ -49,8 +81,8 @@ def test_jax_state_renders_third_frame():
     for f in range(3):
         jr.update_camera(orbit_frame([0.0, 0.0, 0.0], 3.4, theta=0.017 + 0.02 * f, phi=0.009))
         if f == 2:
-            state = convert.temporal_state(jax.tree.map(np.asarray, jr.state))
-            arrays = convert.scene_arrays(jax.tree.map(np.asarray, jr.arrays))
+            state = convert.temporal_state(jax.tree.map(np.asarray, jr.state), device="cpu")
+            arrays = convert.scene_arrays(jax.tree.map(np.asarray, jr.arrays), device="cpu")
         out = jax.tree.map(np.asarray, jr.step())
     assert state.frame_idx == 2 and state.color.dtype == torch.float16
 

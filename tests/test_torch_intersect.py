@@ -1,0 +1,346 @@
+"""The port's intersectors against svgf_tpu's, on the CPU.
+
+Dense scenes (the Cornell box): the port's intersect_dense, and
+intersect_scene under the "auto" policy, against svgf_tpu's dense Pallas
+kernel run in interpret mode, with the bars of tests/test_kernels.py:210-275;
+and the wrapper's last step (`hit_from_winner`: the winner's t/u/v
+recomputed in torch) on the same choice, with its gradient against JAX's.
+
+Large scenes (stress_scene(n=96), 18,052 world triangles): the flattened
+arrays equal svgf_tpu's bit for bit when both build their BVHs with the
+NumPy builder; the port's scene-BVH walk equals svgf_tpu's; and
+intersect_scene holds against svgf_tpu's clustered Pallas kernel in
+interpret mode and a float64 brute force, with the bars of
+tests/test_clustered.py. A ray through an edge shared by two triangles
+may pick either one under another rounding, so winners are judged against
+float64 truth where the two float32 paths differ.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from svgf_tpu.kernels.intersect_pallas import intersect_dense_pallas as j_dense_pallas
+from svgf_tpu.ops.intersect import Hit as JHit
+from svgf_tpu.ops.intersect import intersect_scene as j_intersect_scene
+from svgf_tpu.ops.intersect import set_pallas_mode
+from svgf_tpu.ops.intersect import traverse_scene_bvh as j_traverse
+from svgf_tpu.render.gbuffer import camera_rays as j_camera_rays
+from svgf_tpu.scenes import cornell_box as j_cornell
+from svgf_tpu.scenes.stress import stress_scene as j_stress
+from svgf_tpu_torch import convert
+from svgf_tpu_torch.core.scene import SceneArrays, SceneMeta
+from svgf_tpu_torch.ops.geometry import MAX_LENGTH, ray_triangle_comp
+from svgf_tpu_torch.ops.intersect import (
+    hit_from_winner, intersect_dense, intersect_scene, start_dist, traverse_scene_bvh,
+)
+from svgf_tpu_torch.scenes.stress import stress_scene
+
+
+def _np(x):
+    return np.asarray(x.detach().numpy() if isinstance(x, torch.Tensor) else x)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+# ---------------------------------------------------------------------------
+# dense scenes: K5's plain side and the wrapper's recompute
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def cornell():
+    scene = j_cornell()
+    scene.cameras[0].aspect = 1.0
+    ja = scene.flatten()
+    return ja, convert.scene_arrays(jax.tree.map(np.asarray, ja), device="cpu")
+
+
+def _cornell_rays(ja, kind, n=48, up=False):
+    """Camera rays (n x n), or as many seeded random rays from inside the
+    box (secondary-style rays); `up` turns those towards the ceiling."""
+    ro, rd = jax.jit(lambda a: j_camera_rays(a.cam_frame[0], a.cam_proj[0], n, n))(ja)
+    ro, rd = np.array(ro), np.array(rd)
+    if kind == "random":
+        rng = np.random.default_rng(3)
+        ro = rng.uniform(-0.9, 0.9, ro.shape).astype(np.float32)
+        rd = rng.standard_normal(rd.shape)
+        if up:
+            rd[:, 1] = np.abs(rd[:, 1])
+        rd = (rd / np.linalg.norm(rd, axis=-1, keepdims=True)).astype(np.float32)
+    return ro, rd
+
+
+def _dense_winner(ta, ro, rd, t0, only_instance=None, active=None):
+    """The choice the dense kernel (csrc/intersect_dense.cu) makes: over the
+    real columns in ascending order, the first minimum of the
+    Moller-Trumbore t below the start distance t0. Returns the column, or
+    -1 for no hit and for an inactive ray."""
+    n = ta.meta.n_world_tris
+    v = ta.world_tris9[:, :n]
+    row = lambda k: v[k][None, :]
+    comp = lambda x: tuple(x[:, k : k + 1] for k in range(3))
+    t, _, _, m = ray_triangle_comp(comp(ro), comp(rd), (row(0), row(1), row(2)),
+                                   (row(3), row(4), row(5)), (row(6), row(7), row(8)))
+    if only_instance is not None:
+        m = m & (ta.world_tri_inst[:n] == only_instance)[None, :]
+    t = torch.where(m, t, MAX_LENGTH)
+    best, col = torch.min(t, dim=1)  # first minimum
+    ok = best < t0 if active is None else (best < t0) & active
+    return torch.where(ok, col, -1).to(torch.int32)
+
+
+def _assert_hits_agree(got, want, tmax=None, bar=0.995):
+    """tests/test_kernels.py:210-247: the hit verdict and the winner agree
+    on all but a vanishing fraction of lanes; where they agree, dist to
+    1e-5 and u/v to 1e-5; where both hit, dist to 1e-3."""
+    miss_at = 1e29 if tmax is None else tmax
+    hit, hit_got = _np(want.dist) < miss_at, _np(got.dist) < miss_at
+    same = (_np(got.prim) == _np(want.prim)) & (_np(got.instance) == _np(want.instance))
+    agree = (same | ~hit) & (hit == hit_got)
+    assert agree.mean() > bar, f"winner differs on {(~agree).mean():.2%}"
+    np.testing.assert_allclose(_np(got.dist)[agree], _np(want.dist)[agree], rtol=1e-5, atol=1e-5)
+    m = hit & agree
+    assert m.mean() > 0.01
+    np.testing.assert_array_equal(_np(got.material)[m], _np(want.material)[m])
+    for f in ("u", "v"):
+        np.testing.assert_allclose(_np(getattr(got, f))[m], _np(getattr(want, f))[m], atol=1e-5)
+    both = hit & hit_got
+    np.testing.assert_allclose(_np(got.dist)[both], _np(want.dist)[both], atol=1e-3)
+
+
+@pytest.mark.parametrize("rays", ["camera", "random"])
+@pytest.mark.parametrize("option", [None, "tmax", "only_instance"])
+def test_dense_matches_pallas_kernel(cornell, rays, option):
+    """intersect_dense, intersect_scene("auto") on the CPU, and the wrapper's
+    recompute from the dense kernel's choice, against svgf_tpu's
+    intersect_dense_pallas in interpret mode (the light, instance 3, for
+    only_instance)."""
+    ja, ta = cornell
+    ro, rd = _cornell_rays(ja, rays, up=option == "only_instance")
+    rng = np.random.default_rng(1)
+    active = rng.uniform(size=ro.shape[0]) < 0.9
+    tmax = rng.uniform(1.5, 4.0, ro.shape[0]).astype(np.float32) if option == "tmax" else None
+    only = 3 if option == "only_instance" else None
+    want = j_dense_pallas(ja, jnp.asarray(ro), jnp.asarray(rd), active=jnp.asarray(active),
+                          tmax=None if tmax is None else jnp.asarray(tmax),
+                          only_instance=only, interpret=True)
+    tro, trd, tact = _t(ro), _t(rd), _t(active)
+    ttmax = None if tmax is None else _t(tmax)
+    kw = dict(active=tact, tmax=ttmax, only_instance=only)
+    t0 = start_dist(ttmax, ro.shape[0], "cpu")
+    recomputed = hit_from_winner(ta, tro, trd, _dense_winner(ta, tro, trd, t0, only, tact), t0,
+                                 tact)
+    for got in (intersect_dense(ta, tro, trd, **kw), intersect_scene(ta, tro, trd, "auto", **kw),
+                recomputed):
+        act = tact.numpy()
+        # inactive lanes report the start distance on every path
+        np.testing.assert_array_equal(_np(got.dist)[~act], _np(want.dist)[~act])
+        sel = lambda h: type(h)(*(_np(x)[act] for x in h))
+        _assert_hits_agree(sel(got), sel(want), None if tmax is None else tmax[act])
+    # the kernel's contract on miss lanes: ids 0, as svgf_tpu's kernel
+    # reports them (the plain version reports the first column's prim and
+    # material there); an inactive lane does not search and reports ids 0
+    # too, where svgf_tpu's kernel searches it when its 512-ray sub-tile is live
+    miss_at = 1e29 if tmax is None else tmax
+    miss = _np(recomputed.dist) >= miss_at
+    both = miss & act & (_np(want.dist) >= miss_at)  # an edge ray may hit on one side only
+    assert both.any() or (rays == "camera" and option is None)  # the box fills that view
+    for f in ("prim", "instance", "material"):
+        np.testing.assert_array_equal(_np(getattr(recomputed, f))[miss], 0)
+        np.testing.assert_array_equal(_np(getattr(want, f))[both], 0)
+
+
+def test_dense_recompute_gradient_matches_jax(cornell):
+    """t/u/v stay differentiable with respect to the ray origin through the
+    wrapper's recompute (tests/test_kernels.py:278-296), and the gradient
+    equals JAX's through svgf_tpu's kernel wrapper."""
+    ja, ta = cornell
+    ro, rd = jax.jit(lambda a: j_camera_rays(a.cam_frame[0], a.cam_proj[0], 16, 16))(ja)
+    ro, rd = np.array(ro), np.array(rd)
+
+    def j_loss(o):
+        h = j_dense_pallas(ja, o, jnp.asarray(rd), interpret=True)
+        return jnp.sum(jnp.where(h.dist < 1e29, h.dist, 0.0) + h.u - 0.5 * h.v)
+
+    want = np.asarray(jax.grad(j_loss)(jnp.asarray(ro)))
+    j_hit = j_dense_pallas(ja, jnp.asarray(ro), jnp.asarray(rd), interpret=True)
+    o = _t(ro).requires_grad_(True)
+    trd = _t(rd)
+    t0 = start_dist(None, ro.shape[0], "cpu")
+    h = hit_from_winner(ta, o, trd, _dense_winner(ta, o.detach(), trd, t0), t0)
+    torch.sum(torch.where(h.dist < 1e29, h.dist, 0.0) + h.u - 0.5 * h.v).backward()
+    g = o.grad.numpy()
+    assert np.isfinite(g).all() and np.abs(g).max() > 0
+    # a pixel centre on a box edge may pick the other side's triangle under
+    # another rounding, and its gradient is that triangle's: compare where
+    # both chose the same triangle
+    same = ((_np(h.prim) == np.asarray(j_hit.prim))
+            & (_np(h.instance) == np.asarray(j_hit.instance)))
+    assert same.mean() > 0.98
+    np.testing.assert_allclose(g[same], want[same], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# large scenes: the layout and K6's plain side
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def stress():
+    """stress_scene(n=96) flattened by both packages, both with the NumPy
+    BVH builder (svgf_tpu's native builder makes another tree, whose leaf
+    order decides the soup columns)."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("SVGF_NATIVE", "0")
+    try:
+        ja = j_stress(n=96).flatten()
+    finally:
+        mp.undo()
+    ta = stress_scene(n=96).flatten(device="cpu")
+    return ja, ta
+
+
+@pytest.fixture(scope="module")
+def stress_rays(stress):
+    ja, _ = stress
+    ro, rd = jax.jit(lambda a: j_camera_rays(a.cam_frame[0], a.cam_proj[0], 16, 32))(ja)
+    rng = np.random.default_rng(5)
+    n = 512
+    ro2 = rng.uniform((-1.8, 0.6, -1.8), (1.8, 1.4, 1.8), (n, 3)).astype(np.float32)
+    rd2 = rng.standard_normal((n, 3))
+    rd2 = (rd2 / np.linalg.norm(rd2, axis=-1, keepdims=True)).astype(np.float32)
+    return {"camera": (np.array(ro), np.array(rd)), "scrambled": (ro2, rd2)}
+
+
+def test_large_flatten_matches_jax_bitwise(stress):
+    ja, ta = stress
+    want = jax.tree.map(np.asarray, ja)
+    assert ta.meta.soup_leaf_order and ta.meta.has_scene_bvh
+    assert ta.meta.n_world_tris == 18052
+    for f in dataclasses.fields(SceneMeta):
+        assert getattr(ta.meta, f.name) == getattr(want.meta, f.name), f.name
+    for name in SceneArrays.tensor_fields():
+        w, g = getattr(want, name), getattr(ta, name)
+        assert g.shape == w.shape and str(g.dtype) == f"torch.{w.dtype}", name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+
+
+def _brute_f64(ta, ro, rd, only_instance=None, tmax=None):
+    """float64 nearest hit over the padded world soup (tests/test_clustered.py)."""
+    w9 = ta.world_tris9.numpy().astype(np.float64)
+    wi = ta.world_tri_inst.numpy()
+    ro = np.asarray(ro, np.float64)
+    rd = np.asarray(rd, np.float64)
+    v0, v1, v2 = w9[0:3].T, w9[3:6].T, w9[6:9].T
+    e1, e2 = v1 - v0, v2 - v0
+    h = np.cross(rd[:, None, :], e2[None])
+    a = (e1[None] * h).sum(-1)
+    par = np.abs(a) < 1e-12
+    f = 1.0 / np.where(par, 1.0, a)
+    s = ro[:, None, :] - v0[None]
+    u = f * (s * h).sum(-1)
+    q = np.cross(s, e1[None])
+    v = f * (q * rd[:, None, :]).sum(-1)
+    t = f * (e2[None] * q).sum(-1)
+    valid = wi >= 0 if only_instance is None else wi == only_instance
+    hit = (~par) & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & (t > 1e-8) & valid[None]
+    t = np.where(hit, t, 1e30)
+    if tmax is not None:
+        t = np.where(t < np.asarray(tmax, np.float64)[:, None], t, 1e30)
+    return t.min(axis=1)
+
+
+def _assert_matches_truth(got_dist, ref_t, miss_at=1e29):
+    """tests/test_clustered.py:92-96: the hit/miss sets equal; relative
+    distance error below 2e-3 everywhere and below 1e-5 on 95% of hits."""
+    got = _np(got_dist)
+    hits = ref_t < 1e29
+    assert hits.mean() > 0.1
+    assert ((got < miss_at) == hits).all(), "hit/miss sets differ"
+    rel = np.abs(got[hits] - ref_t[hits]) / ref_t[hits]
+    assert rel.max() < 2e-3, rel.max()
+    assert (rel < 1e-5).mean() > 0.95
+
+
+@pytest.mark.parametrize("rays", ["camera", "scrambled"])
+def test_scene_bvh_walk_matches_jax(stress, stress_rays, rays):
+    """The port's traverse_scene_bvh against svgf_tpu's on the same arrays:
+    the same walk in the same order, so the same winners; t to 1e-5."""
+    ja, ta = stress
+    ro, rd = stress_rays[rays]
+    R = ro.shape[0]
+    active = np.random.default_rng(6).uniform(size=R) < 0.9
+    comp = lambda x: (x[:, 0], x[:, 1], x[:, 2])
+    want = jax.jit(lambda a, o, d, m: j_traverse(a, comp(o), comp(d), JHit.none((R,)), m))(
+        ja, jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(active))
+    got = traverse_scene_bvh(ta, _t(ro), _t(rd), active=_t(active))
+    hit = _np(want.dist) < 1e29
+    assert hit.mean() > 0.15
+    for f in ("prim", "instance", "material"):
+        np.testing.assert_array_equal(_np(getattr(got, f)), _np(getattr(want, f)), err_msg=f)
+    np.testing.assert_allclose(_np(got.dist), _np(want.dist), rtol=1e-5, atol=1e-5)
+    # u and v are quotients by a = dot(e1, h), small on the terrain's
+    # 0.017-unit triangles, so a last-bit difference between torch's and
+    # XLA's CPU arithmetic grows to ~1e-5 there
+    for f in ("u", "v"):
+        np.testing.assert_allclose(_np(getattr(got, f)), _np(getattr(want, f)),
+                                   atol=5e-5, err_msg=f)
+
+
+def test_large_intersect_matches_clustered_kernel_and_truth(stress, stress_rays):
+    """intersect_scene("auto") on the CPU (the plain walk) against float64
+    truth and against svgf_tpu's clustered Pallas kernel in interpret mode."""
+    ja, ta = stress
+    ro, rd = stress_rays["camera"]
+    got = intersect_scene(ta, _t(ro), _t(rd), "auto")
+    _assert_matches_truth(got.dist, _brute_f64(ta, ro, rd))
+    set_pallas_mode("interpret")
+    try:
+        want = j_intersect_scene(ja, jnp.asarray(ro), jnp.asarray(rd))
+    finally:
+        set_pallas_mode("auto")
+    _assert_hits_agree(got, jax.tree.map(np.asarray, want), bar=0.99)
+
+
+def test_large_intersect_only_instance_tmax_active(stress, stress_rays):
+    """Rays straight up at the light quad (instance 1), as
+    tests/test_clustered.py:99-149: only_instance, a tmax below the light,
+    and every other ray inactive. An axis-aligned direction makes 0 * inf
+    in the slab test, which both packages treat as NaN (a missed box)."""
+    ja, ta = stress
+    R = 512
+    up = np.tile(np.array([[0.0, 1.0, 0.0]], np.float32), (R, 1))
+    o = np.stack([np.linspace(-1.2, 1.2, R), np.full(R, 0.5), np.linspace(-0.9, 0.9, R)],
+                 axis=1).astype(np.float32)
+    to, tup = _t(o), _t(up)
+
+    h_only = intersect_scene(ta, to, tup, "auto", only_instance=1)
+    ref = _brute_f64(ta, o, up, only_instance=1)
+    _assert_matches_truth(h_only.dist, ref)
+    assert (_np(h_only.instance)[ref < 1e29] == 1).all()
+
+    tmax = np.full(R, 1.5, np.float32)
+    h_tmax = intersect_scene(ta, to, tup, "auto", tmax=_t(tmax))
+    ref2 = _brute_f64(ta, o, up, tmax=tmax)
+    assert ((_np(h_tmax.dist) < 1.5) == (ref2 < 1e29)).all()
+    np.testing.assert_array_equal(_np(h_tmax.dist)[ref2 >= 1e29], 1.5)
+
+    act = np.arange(R) % 2 == 0
+    h_act = intersect_scene(ta, to, tup, "auto", active=_t(act))
+    assert (_np(h_act.dist)[~act] >= 1e29).all()
+    np.testing.assert_array_equal(_np(h_act.dist)[act],
+                                  _np(intersect_scene(ta, to, tup, "auto").dist)[act])
+
+    set_pallas_mode("interpret")
+    try:
+        j_only = j_intersect_scene(ja, jnp.asarray(o), jnp.asarray(up), only_instance=1)
+    finally:
+        set_pallas_mode("auto")
+    np.testing.assert_allclose(_np(h_only.dist), np.asarray(j_only.dist), rtol=1e-5)

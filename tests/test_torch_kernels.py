@@ -34,18 +34,115 @@ def test_intersector_policy():
     from svgf_tpu_torch.ops.intersect import intersect_scene
     from svgf_tpu_torch.scenes.cornell import cornell_box
 
-    arrays = cornell_box().flatten()
+    arrays = cornell_box().flatten(device="cpu")
     ro, rd = torch.zeros((4, 3)), torch.ones((4, 3))
     with pytest.raises(ValueError):  # "on" on CPU tensors
         intersect_scene(arrays, ro, rd, "on")
     assert intersect_scene(arrays, ro, rd, "auto").dist.shape == (4,)
 
 
+@pytest.mark.parametrize("kind,on,expect", [
+    ("dense", True, "intersect_dense_kernel"), ("dense", False, "intersect_dense"),
+    ("large", True, "intersect_clustered_kernel"), ("large", False, "traverse_scene_bvh"),
+    ("over_max_clusters", True, "intersect_clustered_kernel"),
+])
+def test_intersector_dispatch(monkeypatch, kind, on, expect):
+    """intersect_scene's choice (svgf_tpu/ops/intersect.py:283-325) when the
+    policy resolves to the kernels ("on"/"auto" on CUDA tensors) or not."""
+    import dataclasses
+
+    from svgf_tpu_torch import kernels
+    from svgf_tpu_torch.accel.clusters import CLUSTER_TRIS
+    from svgf_tpu_torch.kernels import intersect as KI
+    from svgf_tpu_torch.ops import intersect as I
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    arrays = cornell_box().flatten(device="cpu")
+    if kind != "dense":
+        arrays = dataclasses.replace(
+            arrays, meta=dataclasses.replace(arrays.meta, n_world_tris=20000, soup_leaf_order=True))
+    if kind == "over_max_clusters":
+        # past svgf_tpu's 8,192-cluster ceiling, which the port's walk lacks
+        wide = torch.zeros((9, 1)).expand(9, CLUSTER_TRIS * (8192 + 1))
+        arrays = dataclasses.replace(arrays, world_tris9=wide)
+    called = []
+    for mod, name in ((KI, "intersect_dense_kernel"), (I, "intersect_dense"),
+                      (KI, "intersect_clustered_kernel"), (I, "traverse_scene_bvh")):
+        monkeypatch.setattr(mod, name, lambda *a, name=name, **k: called.append(name))
+    monkeypatch.setattr(kernels, "resolve_kernels", lambda mode, device: on)
+    I.intersect_scene(arrays, torch.zeros((4, 3)), torch.ones((4, 3)), "on" if on else "off")
+    assert called == [expect]
+
+
+def _large_cornell(monkeypatch):
+    """The Cornell box flattened with the large-scene layout (BLAS-leaf soup,
+    cluster bounds, scene BVH), by lowering the crossover for this test."""
+    from svgf_tpu_torch.core import scene as S
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    monkeypatch.setattr(S, "DENSE_MAX_TRIS", 16)
+    arrays = cornell_box().flatten(device="cpu")
+    assert arrays.meta.soup_leaf_order and arrays.wbvh_skip.shape[0] > 1
+    return arrays
+
+
+def test_intersect_wrappers_on_cpu_are_the_plain_versions(monkeypatch):
+    from svgf_tpu_torch.kernels import intersect as KI
+    from svgf_tpu_torch.ops.intersect import intersect_dense, traverse_scene_bvh
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    rng = np.random.default_rng(2)
+    ro = torch.as_tensor(rng.uniform(-0.9, 0.9, (256, 3)), dtype=torch.float32)
+    rd = torch.nn.functional.normalize(torch.as_tensor(rng.standard_normal((256, 3)),
+                                                       dtype=torch.float32), dim=-1)
+    active = torch.as_tensor(rng.uniform(size=256) < 0.8)
+    tmax = torch.full((256,), 1.5)
+    K.reset_launches()
+    dense = cornell_box().flatten(device="cpu")
+    large = _large_cornell(monkeypatch)
+    for kw in ({}, {"active": active, "tmax": tmax}, {"only_instance": 0}):
+        for wrapper, plain, arrays in ((KI.intersect_dense_kernel, intersect_dense, dense),
+                                       (KI.intersect_clustered_kernel, traverse_scene_bvh, large)):
+            got, want = wrapper(arrays, ro, rd, **kw), plain(arrays, ro, rd, **kw)
+            assert (want.dist < 1e30).any()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+    assert all(v == 0 for v in K.LAUNCHES.values()), K.LAUNCHES
+
+
+def test_intersect_wrappers_reject_devices_without_a_kernel():
+    from svgf_tpu_torch.kernels import intersect as KI
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    arrays = cornell_box().flatten(device="cpu")
+    meta = torch.empty((4, 3), device="meta")
+    for wrapper in (KI.intersect_dense_kernel, KI.intersect_clustered_kernel):
+        with pytest.raises(ValueError):  # the scene on the CPU, the rays on meta
+            wrapper(arrays, meta, meta)
+        with pytest.raises(ValueError):  # rays on two devices
+            wrapper(arrays, torch.zeros((4, 3)), meta)
+
+
+def test_default_device_is_the_card():
+    """Renderer and Scene.flatten target CUDA unless told otherwise, and
+    raise rather than fall back to the CPU when there is no card."""
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    if torch.cuda.is_available():
+        assert cornell_box().flatten().device.type == "cuda"
+        assert pipeline.Renderer(cornell_box(), RenderConfig(width=8, height=8)).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        cornell_box().flatten()
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.Renderer(cornell_box(), RenderConfig(width=8, height=8))
+
+
 def test_render_with_kernels_on_cpu_raises():
     from svgf_tpu_torch.scenes.cornell import cornell_box
 
     cfg = RenderConfig(width=8, height=8, use_pallas="on", use_pallas_intersect="off")
-    r = pipeline.Renderer(cornell_box(), cfg)
+    r = pipeline.Renderer(cornell_box(), cfg, device="cpu")
     with pytest.raises(ValueError):
         r.step()
 
@@ -73,7 +170,8 @@ def test_wrappers_on_cpu_are_the_plain_versions():
     for a, b in zip(K.wavelet_filter(m, gbuf, 3, 10.0, 128.0), P.wavelet_filter(m, gbuf, 3, 10.0, 128.0)):
         assert torch.equal(a, b)
     assert torch.equal(K.taa(m, state.taa_history), P.taa(m, state.taa_history))
-    assert K.LAUNCHES == {"temporal": 0, "moments": 0, "atrous": 0, "taa": 0}
+    assert K.LAUNCHES == dict.fromkeys(
+        ("temporal", "moments", "atrous", "taa", "intersect_dense", "intersect_clustered"), 0)
 
 
 def test_wrappers_reject_devices_without_a_kernel():
@@ -93,6 +191,6 @@ def test_normal_power_squarings(phi, expect):
 def test_library_path_is_keyed_by_the_sources():
     path = build.library_path()
     assert path.parent == build.BUILD_DIR and path == build.library_path()
-    assert len(sorted(build.CSRC.glob("*.cu"))) == 4
+    assert len(sorted(build.CSRC.glob("*.cu"))) == 6
     for name in build.SIGNATURES:
         assert any(name in src.read_text() for src in build.CSRC.glob("*.cu")), name

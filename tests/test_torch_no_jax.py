@@ -1,6 +1,8 @@
-"""The port runs without JAX: the machine with the card has none."""
+"""The port runs without JAX and without svgf_tpu: the machine with the
+card has no JAX, and the port keeps its own copies of what it needs."""
 
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -9,18 +11,19 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 _RENDER_WITHOUT_JAX = """
 import sys
 sys.modules["jax"] = None          # any import of jax now raises ImportError
+sys.modules["svgf_tpu"] = None     # and so does any import of the JAX package
 import numpy as np
 from svgf_tpu_torch.config import RenderConfig, SVGFConfig, TracingConfig
 from svgf_tpu_torch.render.pipeline import Renderer
 from svgf_tpu_torch.scenes.cornell import cornell_box
 cfg = RenderConfig(width=16, height=16, svgf=SVGFConfig(spatial_filter_steps=2),
                    tracing=TracingConfig(bounces=2))
-out = Renderer(cornell_box(), cfg).step()
+out = Renderer(cornell_box(), cfg, device="cpu").step()
 final = out.final.numpy()
 assert final.shape == (16, 16, 3) and np.isfinite(final).all()
 assert final.min() >= 0.0 and final.max() <= 1.0
-assert not any(m == "jax" or m.startswith(("jax.", "jaxlib")) for m in sys.modules
-               if sys.modules[m] is not None)
+assert not any(m in ("jax", "svgf_tpu") or m.startswith(("jax.", "jaxlib", "svgf_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
 print("rendered without jax")
 """
 
@@ -32,9 +35,26 @@ def test_renders_a_frame_without_jax():
     assert "rendered without jax" in proc.stdout
 
 
+# an import statement of jax or of svgf_tpu (svgf_tpu_torch is the port)
+_FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax|jaxlib|svgf_tpu)(?![\w])", re.MULTILINE)
+
+
 def test_no_file_imports_jax():
     files = sorted((ROOT / "svgf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if "import jax" in f.read_text() or "from jax" in f.read_text()]
     assert offenders == []
+
+
+def test_no_file_imports_svgf_tpu():
+    files = sorted((ROOT / "svgf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}" for f in files
+                 for m in _FORBIDDEN.finditer(f.read_text())]
+    assert offenders == []
+    # the pattern sees the imports it is meant to see, and not the port's own
+    for line, bad in (("from svgf_tpu.config import X", True), ("import svgf_tpu", True),
+                      ("    import svgf_tpu.accel.bvh as b", True), ("import jax.numpy", True),
+                      ("from svgf_tpu_torch.ops import x", False), ("import svgf_tpu_torch", False),
+                      ("# see svgf_tpu.accel", False)):
+        assert bool(_FORBIDDEN.search(line)) is bad, line

@@ -34,7 +34,7 @@ def scenes():
     cam = scene.cameras[0]
     scene.cameras[0] = cam.advance(j_orbit_frame([0, 0, 0], 3.4, theta=0.021, phi=0.013))
     ja = scene.flatten()
-    return ja, convert.scene_arrays(jax.tree.map(np.asarray, ja))
+    return ja, convert.scene_arrays(jax.tree.map(np.asarray, ja), device="cpu")
 
 
 def _random_rays(n, seed):
