@@ -28,7 +28,19 @@ Phases, each failing loudly (no phase catches an exception):
      rays traced, and profiles one more frame (the device's busy share and
      the operations with the most device time);
   7. the stress path: the same on the stress terrain at 1920x1080 through
-     the kernels (K1-K4, K6), and kernels against plain at 480x270.
+     the kernels (K1-K4, K6), and kernels against plain at 480x270;
+  8. the band kernels of the row-sharded route (K7-K10) at 1080p: the frame
+     cut into four 270-row bands, each band's halos cut from the whole-frame
+     tensors as its neighbours would send them (zero rows, or edge rows for
+     TAA, beyond the image); each kernel against its plain version on every
+     band and on the one 1080-row band of a one-rank route, the stitched
+     bands against the whole-frame K1, K2, K3-step and K4 outputs; times of
+     each band and of the whole-frame band;
+  9. the row-sharded route: torch.distributed on NCCL with one rank on
+     cuda:0, make_sharded_step for FRAMES Cornell 1080p frames as in phase
+     6; checks the launches per frame (K7 1, K8 1, K9b 5, K10 1, and the
+     intersector's), the image, and frame FRAMES against the unsharded
+     Renderer's; prints frame and stage milliseconds.
 Every kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its FP32 operations on these inputs over 67 TFLOP/s
 (the H100 SXM's published peaks at 700 W).
@@ -49,6 +61,7 @@ import numpy as np
 import torch
 
 H, W = 1080, 1920
+DEVICE = "cuda"
 FRAMES = 4
 # 2 lane chunks: the 1080p frame's trace in two halves (PERF.md section 5).
 TRACE_CHUNKS = 2
@@ -79,6 +92,12 @@ KERNELS = (
      "svgf_tpu/kernels/intersect_pallas.py:561"),
     ("intersect_clustered", "svgf_tpu_torch/csrc/intersect_clustered.cu",
      "svgf_tpu/kernels/intersect_pallas.py:489"),
+    ("temporal_band", "svgf_tpu_torch/csrc/temporal.cu", "svgf_tpu/kernels/temporal_pallas.py:190"),
+    ("moments_band", "svgf_tpu_torch/csrc/moments.cu", "svgf_tpu/kernels/moments_pallas.py:174"),
+    # K9a, the HWC chain, is K3's function in the port's one layout: one call
+    ("atrous_chain", "svgf_tpu_torch/csrc/atrous.cu", "svgf_tpu/kernels/atrous_pallas.py:324"),
+    ("atrous_iteration", "svgf_tpu_torch/csrc/atrous.cu", "svgf_tpu/kernels/atrous_pallas.py:412"),
+    ("taa_band", "svgf_tpu_torch/csrc/taa.cu", "svgf_tpu/kernels/taa_pallas.py:116"),
 )
 
 
@@ -125,6 +144,24 @@ def cuda_ms(fn, iters: int = TIMED_ITERS, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_alone_ms(fn, iters: int = TIMED_ITERS) -> float:
+    """Device milliseconds per fn() of the svgf:: kernels it launches, by
+    torch.profiler: the kernels alone, without the wrapper's host time or
+    the gaps between launches that it leaves."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "svgf::" in e.name)
+    return us / 1e3 / iters
+
+
 def time_pair(name, kernel, plain, iters=TIMED_ITERS, plain_iters=TIMED_ITERS, plain_warmup=3):
     """Kernel and plain in turns plain, kernel, kernel, plain, so both see
     the same card state; returns {"ms", "plain_ms"}."""
@@ -150,7 +187,7 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 
 
 def cuda(x, dtype=torch.float32):
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device="cuda")
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=DEVICE)
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +224,7 @@ def frame_inputs(seed: int = 0):
     n = np.where(bg[..., None], 0.0, n)
     inst = np.where(bg, -1, inst)
 
-    gbuf = GBuffer.zeros(H, W, device="cuda")._replace(
+    gbuf = GBuffer.zeros(H, W, device=DEVICE)._replace(
         depth=cuda(depth), depth_deriv=cuda(rng.uniform(1e-4, 1e-2, (H, W))),
         normal=cuda(n), instance=cuda(inst, torch.int32), motion=cuda(motion),
     )
@@ -197,7 +234,7 @@ def frame_inputs(seed: int = 0):
         moments=cuda(rng.uniform(0, 0.5, (H, W, 2)), f16),
         history_len=cuda(rng.integers(1, 24, (H, W)), torch.int32),
         taa_history=cuda(rng.uniform(0, 1, (H, W, 4)), f16),
-        gbuffer=GBuffer.zeros(H, W, f16, device="cuda")._replace(
+        gbuffer=GBuffer.zeros(H, W, f16, device=DEVICE)._replace(
             depth=cuda(depth_prev, f16), normal=cuda(n_prev, f16),
             instance=cuda(inst_prev, torch.int32),
         ),
@@ -277,8 +314,159 @@ def check_filter_kernels() -> dict:
         t = time_pair(name + (" (5-step chain)" if name == "atrous" else ""), kernel, plain)
         # no single PyTorch call computes these edge-stopping stencils
         timed[name] = {"max_abs_err": err, **t, **b, "library_ms": None}
-        log(f"  {name}: bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+        log(f"  {name}: bound {b['bound_ms']:.4f} ms by {b['bound_by']}; the kernel alone "
+            f"(profiler) {kernel_alone_ms(kernel):.4f} ms")
     return timed
+
+
+# ---------------------------------------------------------------------------
+# K7-K10: the band kernels of the row-sharded route
+# ---------------------------------------------------------------------------
+
+NBANDS = 4                        # 270-row bands of the 1080p frame
+ATROUS_STEPS = (1, 2, 4, 8, 16)   # K9b's steps in a 5-step frame
+
+
+def halo_rows(x, r0: int, r1: int, halo: int, mode: str):
+    """Rows [r0 - halo, r1 + halo) of the whole-frame tensor x, as the
+    band's neighbours would send them; beyond the image, zero rows ("zero")
+    or the image's edge row ("edge")."""
+    h = x.shape[0]
+    lo, hi = max(r0 - halo, 0), min(r1 + halo, h)
+    fill = lambda rows, edge: (torch.zeros_like(x[:rows]) if mode == "zero"
+                               else edge.expand((rows,) + tuple(x.shape[1:])))
+    parts = [fill(lo - (r0 - halo), x[:1]), x[lo:hi], fill(r1 + halo - hi, x[-1:])]
+    return torch.cat(parts).contiguous()
+
+
+def band_calls(radiance, gbuf, state, t_full, m_full, a_full, r0: int, r1: int) -> dict:
+    """K7, K8, K9b (the five steps) and K10 on the band [r0, r1) of the
+    frame: {name: (kernel, plain, crop, bound)}; `crop` keeps the band's
+    rows of a result."""
+    from svgf_tpu_torch.config import SVGFConfig
+    from svgf_tpu_torch.kernels import filter as K
+    from svgf_tpu_torch.render import svgf as P
+    from svgf_tpu_torch.render.types import GBuffer
+
+    sv = SVGFConfig(spatial_filter_steps=5)
+    zero = lambda x, halo: halo_rows(x, r0, r1, halo, "zero")
+    ext_gbuf = lambda halo: GBuffer(*(zero(x, halo) for x in gbuf))
+    px = lambda halo: (r1 - r0 + 2 * halo) * W
+    crop = lambda halo: (lambda x: x[halo:x.shape[0] - halo])
+    by = P.BOUND_Y
+
+    g = GBuffer(*(x[r0:r1].contiguous() for x in gbuf))
+    win = GBuffer(*(zero(x, by) for x in state.gbuffer))
+    t_args = (radiance[r0:r1].contiguous(), zero(state.color, by), g, win, zero(state.moments, by),
+              zero(state.history_len, by), sv.depth_threshold, sv.normal_threshold,
+              sv.history_length, r0, H)
+    t_bytes = nbytes(t_args[0], g.depth, g.normal, g.instance, g.motion, t_args[1], win.depth,
+                     win.normal, win.instance, t_args[4], t_args[5]) + px(0) * (16 + 8 + 4 + 1)
+
+    g3 = ext_gbuf(3)
+    m_args = (zero(t_full.color, 3), zero(t_full.moments, 3), g3,
+              zero(torch.clamp_min(t_full.history_len, 1), 3), sv.phi_colour, sv.phi_normal)
+    fallback = int(((m_args[3] < 4) & (g3.depth != 0)).sum())
+    m_bytes = nbytes(*m_args[:2], g3.depth, g3.depth_deriv, g3.normal, m_args[3]) + px(3) * 16
+
+    a_args = {st: (zero(m_full, 2 * st), ext_gbuf(2 * st), st, sv.phi_colour, sv.phi_normal)
+              for st in ATROUS_STEPS}
+    a_bytes = sum(nbytes(a[0], a[1].depth, a[1].depth_deriv, a[1].normal) + px(2 * st) * 16
+                  for st, a in a_args.items())
+    a_ops = sum(int((a[1].depth != 0).sum()) * 24 * OPS_ATROUS_TAP for a in a_args.values())
+    a_crop = lambda outs: [crop(2 * st)(o) for st, o in zip(ATROUS_STEPS, outs)]
+
+    x_args = (halo_rows(a_full, r0, r1, 1, "edge"), halo_rows(state.taa_history, r0, r1, 1, "edge"))
+    return {
+        "temporal_band": (lambda: K.temporal_filter_band(*t_args),
+                          lambda: P.temporal_filter_band(*t_args), lambda x: x,
+                          bound(t_bytes, px(0) * OPS_TEMPORAL)),
+        "moments_band": (lambda: K.filter_moments_band(*m_args), lambda: P.filter_moments(*m_args),
+                         crop(3), bound(m_bytes, fallback * 49 * OPS_MOMENTS_TAP)),
+        "atrous_iteration": (lambda: [K.atrous_iteration(*a_args[st]) for st in ATROUS_STEPS],
+                             lambda: [P.atrous_iteration(*a_args[st]) for st in ATROUS_STEPS],
+                             a_crop, bound(a_bytes, a_ops)),
+        "taa_band": (lambda: K.taa_band(*x_args), lambda: P.taa(*x_args), crop(1),
+                     bound(nbytes(*x_args) + px(1) * 16, px(1) * OPS_TAA)),
+    }
+
+
+def check_band_outputs(label, name, got, want) -> float:
+    """A band kernel against its plain version on the same band."""
+    if name == "temporal_band":
+        assert torch.equal(got.history_len, want.history_len), (label, "history")
+        assert torch.equal(got.reprojected, want.reprojected), (label, "reprojected")
+        return max(assert_stage(f"{label} color", got.color, want.color, 3e-5),
+                   assert_stage(f"{label} moments", got.moments, want.moments, 3e-5))
+    if name == "atrous_iteration":
+        return max(assert_stage(f"{label} step {st}", g, w)
+                   for st, g, w in zip(ATROUS_STEPS, got, want))
+    return assert_stage(label, got, want)
+
+
+def check_band_kernels() -> dict:
+    """Phase 8: K7-K10 on the four 270-row bands of the 1080p frame and on
+    the whole-frame band of a one-rank route."""
+    from svgf_tpu_torch.config import SVGFConfig
+    from svgf_tpu_torch.kernels import filter as K
+    from svgf_tpu_torch.render.svgf import BOUND_X, BOUND_Y
+
+    sv = SVGFConfig(spatial_filter_steps=5)
+    radiance, gbuf, state = frame_inputs()
+    # the whole-frame K1-K4 outputs: the bands' inputs and their reference
+    t_full = K.temporal_filter(radiance, state.color, gbuf, state.gbuffer, state.moments,
+                               state.history_len, sv.depth_threshold, sv.normal_threshold,
+                               sv.history_length)
+    m_full = K.filter_moments(t_full.color, t_full.moments, gbuf, t_full.history_len,
+                              sv.phi_colour, sv.phi_normal)
+    a_full = K.wavelet_filter(m_full, gbuf, 5, sv.phi_colour, sv.phi_normal)[0]
+    steps_full = [K.atrous_iteration(m_full, gbuf, st, sv.phi_colour, sv.phi_normal)
+                  for st in ATROUS_STEPS]    # the K3 step kernel on the whole frame
+    x_full = K.taa(a_full, state.taa_history)
+    motion = gbuf.motion.to(torch.int32)
+    in_bound = (motion[..., 1].abs() <= BOUND_Y) & (motion[..., 0].abs() <= BOUND_X)
+
+    hb = H // NBANDS
+    bands = [(b * hb, (b + 1) * hb) for b in range(NBANDS)] + [(0, H)]
+    stitched = {name: [] for name in ("temporal_band", "moments_band", "atrous_iteration", "taa_band")}
+    results = {name: {"bands": []} for name in stitched}
+    log(f"band kernels (K7-K10) vs plain, {NBANDS} bands of {hb} rows and the {H}-row band, "
+        f"{W} wide; {100 * float(in_bound.float().mean()):.2f}% of pixels within the motion bound:")
+    for r0, r1 in bands:
+        whole = (r0, r1) == (0, H)
+        for name, (kernel, plain, crop, b) in band_calls(radiance, gbuf, state, t_full, m_full,
+                                                         a_full, r0, r1).items():
+            label = f"{name} rows [{r0}, {r1})"
+            got = kernel()
+            err = check_band_outputs(label, name, got, plain())
+            t = time_pair(label, kernel, plain)
+            log(f"  {label}: bound {b['bound_ms']:.4f} ms by {b['bound_by']}; the kernel alone "
+                f"(profiler) {kernel_alone_ms(kernel):.4f} ms")
+            if whole:   # the shapes the one-rank route gives: the row of the JSON line
+                results[name].update({"max_abs_err": err, **t, **b, "library_ms": None})
+            else:
+                results[name]["bands"].append({"rows": [r0, r1], **t, "bound_ms": b["bound_ms"]})
+                stitched[name].append(crop(got))
+
+    log("stitched bands vs the whole-frame kernels:")
+    color = torch.cat([t.color for t in stitched["temporal_band"]])
+    moments = torch.cat([t.moments for t in stitched["temporal_band"]])
+    history = torch.cat([t.history_len for t in stitched["temporal_band"]])
+    valid = torch.cat([t.reprojected for t in stitched["temporal_band"]])
+    ib = in_bound
+    assert_stage("temporal color (within the bound)", color[ib], t_full.color[ib], 3e-5)
+    assert_stage("temporal moments (within the bound)", moments[ib], t_full.moments[ib], 3e-5)
+    assert torch.equal(history[ib], t_full.history_len[ib]), "temporal history"
+    assert torch.equal(valid[ib], t_full.reprojected[ib]), "temporal reprojected"
+    assert not bool(valid[~ib].any()) and bool((history[~ib] == 1).all()), "out of the bound"
+    log(f"  temporal: {int((~ib).sum())} pixels beyond the bound, all disoccluded "
+        f"({int((t_full.reprojected & ~ib).sum())} of them reprojected by K1's unbounded gather)")
+    assert_stage("moments", torch.cat(stitched["moments_band"]), m_full)
+    for k, st in enumerate(ATROUS_STEPS):
+        assert_stage(f"atrous step {st}", torch.cat([o[k] for o in stitched["atrous_iteration"]]),
+                     steps_full[k])
+    assert_stage("taa", torch.cat(stitched["taa_band"]), x_full)
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +515,7 @@ def check_dense_kernel() -> dict:
     from svgf_tpu_torch.render.gbuffer import camera_rays
     from svgf_tpu_torch.scenes.cornell import cornell_box
 
-    arrays = cornell_box(aspect=W / H).flatten(device="cuda")
+    arrays = cornell_box(aspect=W / H).flatten(device=DEVICE)
     n_tris = arrays.meta.n_world_tris
     R = H * W
     ro_p, rd_p = camera_rays(arrays.cam_frame[0], arrays.cam_proj[0], H, W)
@@ -393,7 +581,7 @@ def check_clustered_kernel(scene) -> dict:
     from svgf_tpu_torch.render.pathtrace import make_block_order
 
     t_host = time.perf_counter()
-    arrays = scene.flatten(device="cuda")
+    arrays = scene.flatten(device=DEVICE)
     torch.cuda.synchronize()
     log(f"K6 stress_scene(n={STRESS_N}): flatten (NumPy BVH build) {time.perf_counter() - t_host:.3f} s "
         f"host; {arrays.meta.n_world_tris} world triangles, soup {tuple(arrays.world_tris9.shape)}, "
@@ -508,7 +696,7 @@ def run_frames(scene, orbit, h, w, use_pallas: str, chunks: int):
         keep_taps=False, use_pallas=use_pallas, trace_chunks=chunks,
     )
     cam0 = scene.cameras[0]
-    r = Renderer(scene, cfg, device="cuda")
+    r = Renderer(scene, cfg, device=DEVICE)
     stages = []
     out = None
     for f in range(FRAMES):
@@ -532,11 +720,12 @@ def expected_launches(intersector: str, chunks: int) -> dict:
     G-buffer chunk and once per bounce and trace chunk (the primary hit
     comes from the G-buffer)."""
     from svgf_tpu_torch.config import RenderConfig
+    from svgf_tpu_torch.kernels.launch import LAUNCHES
 
     cfg = RenderConfig()
     per_frame = chunks * (1 + cfg.tracing.batch * (cfg.tracing.bounces + (not cfg.hybrid_primary)))
-    launches = {"temporal": FRAMES, "moments": FRAMES, "atrous": 5 * FRAMES, "taa": FRAMES,
-                "intersect_dense": 0, "intersect_clustered": 0}
+    launches = dict.fromkeys(LAUNCHES, 0)
+    launches.update(temporal=FRAMES, moments=FRAMES, atrous=5 * FRAMES, taa=FRAMES)
     launches[intersector] = FRAMES * per_frame
     return launches
 
@@ -598,6 +787,93 @@ def check_main_path() -> dict:
     return launches
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def check_sharded_route() -> dict:
+    """Phase 9: make_sharded_step on one NCCL rank, FRAMES Cornell 1080p
+    frames, against the unsharded Renderer's frames."""
+    import os
+
+    import torch.distributed as dist
+
+    from svgf_tpu_torch.config import RenderConfig, SVGFConfig
+    from svgf_tpu_torch.core.camera import orbit_frame
+    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
+    from svgf_tpu_torch.parallel import init_distributed, make_row_mesh, make_sharded_step
+    from svgf_tpu_torch.render.pipeline import Renderer
+    from svgf_tpu_torch.render.svgf import BOUND_X, BOUND_Y
+    from svgf_tpu_torch.render.types import TemporalState
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(free_port()))
+    device = init_distributed()
+    mesh = make_row_mesh()
+    log(f"sharded route: {mesh.size} rank, backend {dist.get_backend()} on {device}; with one "
+        "rank no collective is issued (halo.py's n == 1 branch: the halos are the image's zero "
+        "or edge rows)")
+    try:
+        cfg = RenderConfig(width=W, height=H, svgf=SVGFConfig(spatial_filter_steps=5),
+                           state_dtype="float16", keep_taps=True, use_pallas="on",
+                           trace_chunks=TRACE_CHUNKS)
+        orbit = lambda f: orbit_frame([0.0, 0.0, 0.0], 3.4, theta=0.01 * f, phi=0.0) if f else None
+        step = make_sharded_step(cfg, mesh)
+        holder = Renderer(cornell_box(aspect=W / H), cfg, device=device)   # scene and camera
+        state = TemporalState.initial(H // mesh.size, W, torch.float16, device)
+        stages = []
+        reset_launches()
+        for f in range(FRAMES):
+            if orbit(f) is not None:
+                holder.update_camera(orbit(f))
+            events = {}
+            torch.cuda.synchronize()
+            out, state = step(holder.arrays, state, events)
+            torch.cuda.synchronize()
+            names = list(events)
+            ms = {b: events[a].elapsed_time(events[b]) for a, b in zip(names, names[1:])}
+            ms["frame"] = events[names[0]].elapsed_time(events[names[-1]])
+            stages.append(ms)
+        launches = dict(LAUNCHES)
+        log(f"sharded route (Cornell 1080p, 1 rank) launches over {FRAMES} frames: {launches}")
+        per_frame = TRACE_CHUNKS * cfg.tracing.batch * (cfg.tracing.bounces + (not cfg.hybrid_primary))
+        expect = dict.fromkeys(LAUNCHES, 0)
+        expect.update(temporal_band=FRAMES, moments_band=FRAMES, atrous_iteration=5 * FRAMES,
+                      taa_band=FRAMES, intersect_dense=FRAMES * (1 + per_frame))
+        assert launches == expect, (launches, expect)
+        final = out.final
+        assert final.shape == (H, W, 3) and bool(torch.isfinite(final).all()), "sharded final"
+        assert float(final.min()) >= 0.0 and float(final.max()) <= 1.0, "sharded final outside [0, 1]"
+        log_stages("sharded route", stages)
+
+        # the same frames through the unsharded Renderer
+        ref = Renderer(cornell_box(aspect=W / H), cfg, device=device)
+        for f in range(FRAMES):
+            if orbit(f) is not None:
+                ref.update_camera(orbit(f))
+            want = ref.step()
+        m = out.gbuffer.motion.to(torch.int32)
+        beyond = int(((m[..., 1].abs() > BOUND_Y) | (m[..., 0].abs() > BOUND_X)).sum())
+        log(f"sharded vs unsharded, frame {FRAMES} ({beyond} pixels move beyond K7's bound):")
+        assert_stage("radiance", out.radiance, want.radiance, 1e-6)
+        for tap in ("temporal", "moments_filtered", "atrous"):
+            assert_stage(tap, getattr(out, tap), getattr(want, tap), 3e-5)
+        d = (out.final - want.final).abs()
+        log(f"  final: max_abs_err {float(d.max()):.3e} mean_abs_err {float(d.mean()):.3e}")
+        assert float(d.mean()) < 1e-4 and not bool((d > 5e-3).any()), "sharded final"
+        for field in ("color", "moments"):
+            assert_stage(f"state {field}", getattr(state, field), getattr(ref.state, field), 3e-5)
+        assert torch.equal(state.history_len, ref.state.history_len), "state history"
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
 def check_stress_path(scene) -> dict:
     from svgf_tpu_torch.core.camera import orbit_frame
     from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
@@ -628,11 +904,13 @@ def check_stress_path(scene) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     smi = check_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_kernels()
     timed = check_filter_kernels()
+    timed.update(check_band_kernels())
     timed["intersect_dense"] = check_dense_kernel()
 
     from svgf_tpu_torch.scenes.stress import stress_scene
@@ -640,6 +918,11 @@ def main() -> int:
     stress = stress_scene(n=STRESS_N, aspect=W / H)
     timed["intersect_clustered"] = check_clustered_kernel(stress)
     launches = check_main_path()
+    # K9a is K3's chain (one function in the port's one layout): its row is K3's call
+    timed["atrous_chain"], launches["atrous_chain"] = timed["atrous"], launches["atrous"]
+    sharded_launches = check_sharded_route()
+    for name in ("temporal_band", "moments_band", "atrous_iteration", "taa_band"):
+        launches[name] = sharded_launches[name]
     stress_launches = check_stress_path(stress)
     launches["intersect_clustered"] = stress_launches["intersect_clustered"]
 
@@ -650,6 +933,7 @@ def main() -> int:
         for name, src, rep in KERNELS
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ object with the same attributes), these return the port's records on
 `device` (the card unless the caller asks for the CPU), every field with
 its values and dtype unchanged, the large-scene ones (cluster bounds,
 `wbvh_*`) too. Both packages then compute on identical inputs, which is
-what the tests compare.
+what the tests compare. For the row-sharded route, `temporal_state_band`
+cuts such a state into one rank's band and `stack_bands` puts the ranks'
+bands of any record back together.
 """
 
 from __future__ import annotations
@@ -43,3 +45,28 @@ def temporal_state(state, device="cuda") -> TemporalState:
         gbuffer=GBuffer(*(_tensor(getattr(state.gbuffer, f), device) for f in GBuffer._fields)),
         frame_idx=int(state.frame_idx),
     )
+
+
+def temporal_state_band(state, rank: int, n: int, device="cuda") -> TemporalState:
+    """Rank `rank`'s band of the full-image state: rows [rank*Hs, (rank+1)*Hs)
+    of every image, Hs = H // n."""
+    full = temporal_state(state, "cpu")
+    hs = full.color.shape[0] // n
+    rows = slice(rank * hs, (rank + 1) * hs)
+    band = lambda x: x[rows].contiguous().to(device)
+    return full._replace(
+        color=band(full.color), moments=band(full.moments), history_len=band(full.history_len),
+        taa_history=band(full.taa_history), gbuffer=GBuffer(*map(band, full.gbuffer)))
+
+
+def stack_bands(bands):
+    """The inverse of cutting into bands: the ranks' bands of a record
+    (TemporalState, FrameOutputs, GBuffer, ...), in rank order, with every
+    tensor concatenated along its rows onto the CPU. Fields that are not
+    tensors (None, frame_idx) are taken from rank 0."""
+    first = bands[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat([b.cpu() for b in bands])
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(stack_bands([getattr(b, f) for b in bands]) for f in first._fields))
+    return first

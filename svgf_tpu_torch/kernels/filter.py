@@ -1,4 +1,4 @@
-"""Wrappers of the four SVGF filter kernels (svgf_tpu_torch/csrc).
+"""Wrappers of the SVGF filter kernels (svgf_tpu_torch/csrc).
 
 Each wrapper has the signature of its plain version in render/svgf.py.
 Given CUDA tensors it checks device, dtype, shape and contiguity, launches
@@ -7,16 +7,33 @@ tensors it runs the plain version. It never falls back from a CUDA tensor
 to the plain version. `LAUNCHES` (kernels/launch.py) counts kernel
 launches per wrapper.
 
-| wrapper         | kernel           | replaces (svgf_tpu/kernels/planar.py)  |
-|-----------------|------------------|----------------------------------------|
-| temporal_filter | csrc/temporal.cu | temporal_planar (:454)                 |
-| filter_moments  | csrc/moments.cu  | moments_planar (:721)                  |
-| wavelet_filter  | csrc/atrous.cu   | atrous_chain_planar_v2 (:918)          |
-| taa             | csrc/taa.cu      | taa_planar (:1153)                     |
+| wrapper              | kernel           | replaces (svgf_tpu/kernels/)                |
+|----------------------|------------------|---------------------------------------------|
+| temporal_filter      | csrc/temporal.cu | K1 planar.py temporal_planar (:454)         |
+| filter_moments       | csrc/moments.cu  | K2 planar.py moments_planar (:721)          |
+| wavelet_filter       | csrc/atrous.cu   | K3 planar.py atrous_chain_planar_v2 (:918), |
+|                      |                  | K9a atrous_pallas.py atrous_chain_pallas    |
+|                      |                  | (:324)                                      |
+| taa                  | csrc/taa.cu      | K4 planar.py taa_planar (:1153)             |
+| temporal_filter_band | csrc/temporal.cu | K7 temporal_pallas.py                       |
+|                      |                  | temporal_filter_pallas (:190)               |
+| filter_moments_band  | csrc/moments.cu  | K8 moments_pallas.py filter_moments_pallas  |
+|                      |                  | (:174)                                      |
+| atrous_iteration     | csrc/atrous.cu   | K9b atrous_pallas.py                        |
+|                      |                  | atrous_iteration_pallas (:412)              |
+| taa_band             | csrc/taa.cu      | K10 taa_pallas.py taa_pallas (:116)         |
 
-All four are stencils or gathers over a few dozen bytes per pixel, so the
-card's memory bandwidth bounds them; each source's header says what its
-design does about that.
+The port has one (H, W, C) layout, so the planar chain K3 and the HWC
+chain K9a are one function. The last four serve the row-sharded route
+(parallel/sharded.py) on halo-extended bands: K7 is the band entry of the
+temporal kernel; K8, K9b and K10 launch the K2, K3-step and K4 kernels on
+the extended band, whose zero rows (moments, a-trous: a zero normal gives
+weight 0) or edge rows (TAA: the clamped taps) make the band's result the
+whole frame's. They count their launches under their own names.
+
+All of them are stencils or gathers over a few dozen bytes per pixel, so
+the card's memory bandwidth bounds them; each source's header says what
+its design does about that.
 """
 
 from __future__ import annotations
@@ -26,11 +43,12 @@ import torch
 from svgf_tpu_torch.kernels.build import library
 from svgf_tpu_torch.kernels.launch import LAUNCHES, check, launch, on_cpu, ptr, reset_launches
 from svgf_tpu_torch.render import svgf
-from svgf_tpu_torch.render.svgf import TemporalResult
+from svgf_tpu_torch.render.svgf import BOUND_X, BOUND_Y, TemporalResult
 from svgf_tpu_torch.render.types import GBuffer
 
 __all__ = ["LAUNCHES", "reset_launches", "temporal_filter", "filter_moments",
-           "wavelet_filter", "taa"]
+           "wavelet_filter", "taa", "temporal_filter_band", "filter_moments_band",
+           "atrous_iteration", "taa_band"]
 
 _STATE_TYPES = {torch.float16: "f16", torch.float32: "f32"}
 
@@ -52,6 +70,42 @@ def _check_gbuffer(gbuf: GBuffer, h: int, w: int, fields) -> None:
         check(getattr(gbuf, f), f"gbuf.{f}", shapes[f], dtypes)
 
 
+def _launch_temporal(entry: str, current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer,
+                     prev_moments, prev_history, depth_threshold: float,
+                     normal_threshold: float, history_base_length: int, prev_rows: int,
+                     *band) -> TemporalResult:
+    """Check the arguments of K1 or K7 (previous state of `prev_rows` rows)
+    and launch `entry`_f16 or _f32; `band` are K7's extra ints."""
+    h, w = current.shape[:2]
+    st = prev_color.dtype
+    if st not in _STATE_TYPES:
+        raise ValueError(f"prev_color: dtype {st}, expected float16 or float32")
+    check(current, "current", (h, w, 3), (torch.float32,))
+    _check_gbuffer(gbuf, h, w, ("depth", "normal", "instance", "motion"))
+    check(prev_color, "prev_color", (prev_rows, w, 4), (st,))
+    check(prev_gbuf.depth, "prev_gbuf.depth", (prev_rows, w), (st,))
+    check(prev_gbuf.normal, "prev_gbuf.normal", (prev_rows, w, 3), (st,))
+    check(prev_gbuf.instance, "prev_gbuf.instance", (prev_rows, w), (torch.int32,))
+    check(prev_moments, "prev_moments", (prev_rows, w, 2), (st,))
+    check(prev_history, "prev_history", (prev_rows, w), (torch.int32,))
+    dev = current.device
+    color = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
+    moments = torch.empty((h, w, 2), dtype=torch.float32, device=dev)
+    history = torch.empty((h, w), dtype=torch.int32, device=dev)
+    valid = torch.empty((h, w), dtype=torch.bool, device=dev)
+    fn = getattr(library(), f"{entry}_{_STATE_TYPES[st]}")
+    launch(fn, dev, *map(ptr, (
+        current, gbuf.depth, gbuf.normal, gbuf.instance, gbuf.motion, prev_color,
+        prev_gbuf.depth, prev_gbuf.normal, prev_gbuf.instance, prev_moments, prev_history,
+        color, moments, history, valid)),
+        h, w, depth_threshold, normal_threshold, history_base_length, *band)
+    return TemporalResult(color=color, moments=moments, history_len=history, reprojected=valid)
+
+
+def _temporal_tensors(current, prev_color, gbuf, prev_gbuf, prev_moments, prev_history):
+    return (current, prev_color, prev_moments, prev_history, *gbuf, *prev_gbuf)
+
+
 def temporal_filter(current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer, prev_moments,
                     prev_history, depth_threshold: float, normal_threshold: float,
                     history_base_length: int) -> TemporalResult:
@@ -62,36 +116,53 @@ def temporal_filter(current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer, prev
     ~68 B read (40 B current frame, 28 B fp16 state) and 29 B written per
     pixel; one thread per pixel reads the fp16 state where it lies, with
     no motion bound and no packed planes."""
-    tensors = (current, prev_color, prev_moments, prev_history, *gbuf, *prev_gbuf)
-    if on_cpu(*tensors):
-        return svgf.temporal_filter(current, prev_color, gbuf, prev_gbuf, prev_moments,
-                                    prev_history, depth_threshold, normal_threshold,
+    args = (current, prev_color, gbuf, prev_gbuf, prev_moments, prev_history)
+    if on_cpu(*_temporal_tensors(*args)):
+        return svgf.temporal_filter(*args, depth_threshold, normal_threshold,
                                     history_base_length)
-    h, w = current.shape[:2]
-    st = prev_color.dtype
-    if st not in _STATE_TYPES:
-        raise ValueError(f"prev_color: dtype {st}, expected float16 or float32")
-    check(current, "current", (h, w, 3), (torch.float32,))
-    _check_gbuffer(gbuf, h, w, ("depth", "normal", "instance", "motion"))
-    check(prev_color, "prev_color", (h, w, 4), (st,))
-    check(prev_gbuf.depth, "prev_gbuf.depth", (h, w), (st,))
-    check(prev_gbuf.normal, "prev_gbuf.normal", (h, w, 3), (st,))
-    check(prev_gbuf.instance, "prev_gbuf.instance", (h, w), (torch.int32,))
-    check(prev_moments, "prev_moments", (h, w, 2), (st,))
-    check(prev_history, "prev_history", (h, w), (torch.int32,))
-    dev = current.device
-    color = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
-    moments = torch.empty((h, w, 2), dtype=torch.float32, device=dev)
-    history = torch.empty((h, w), dtype=torch.int32, device=dev)
-    valid = torch.empty((h, w), dtype=torch.bool, device=dev)
-    fn = getattr(library(), f"svgf_temporal_{_STATE_TYPES[st]}")
-    launch(fn, dev, *map(ptr, (
-        current, gbuf.depth, gbuf.normal, gbuf.instance, gbuf.motion, prev_color,
-        prev_gbuf.depth, prev_gbuf.normal, prev_gbuf.instance, prev_moments, prev_history,
-        color, moments, history, valid)),
-        h, w, depth_threshold, normal_threshold, history_base_length)
+    out = _launch_temporal("svgf_temporal", *args, depth_threshold, normal_threshold,
+                           history_base_length, current.shape[0])
     LAUNCHES["temporal"] += 1
-    return TemporalResult(color=color, moments=moments, history_len=history, reprojected=valid)
+    return out
+
+
+def temporal_filter_band(current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer, prev_moments,
+                         prev_history, depth_threshold: float, normal_threshold: float,
+                         history_base_length: int, row0: int, h_total: int) -> TemporalResult:
+    """K7 (csrc/temporal.cu, the band entry); plain version
+    svgf.temporal_filter_band. `current` and `gbuf` are a band of Hs rows
+    whose first row is global `row0` of an `h_total`-row image; the prev_*
+    state is the window of Hs + 2*BOUND_Y rows from global row0 - BOUND_Y,
+    fp16 or fp32, zero outside the image. Motion beyond (BOUND_Y, BOUND_X)
+    is a disocclusion.
+
+    Replaces svgf_tpu/kernels/temporal_pallas.py temporal_filter_pallas
+    (band_halo=True). K1's bytes and operations per pixel; the window is
+    read where it lies, with no packing pass."""
+    args = (current, prev_color, gbuf, prev_gbuf, prev_moments, prev_history)
+    if on_cpu(*_temporal_tensors(*args)):
+        return svgf.temporal_filter_band(*args, depth_threshold, normal_threshold,
+                                         history_base_length, row0, h_total)
+    prev_rows = current.shape[0] + 2 * BOUND_Y
+    out = _launch_temporal("svgf_temporal_band", *args, depth_threshold, normal_threshold,
+                           history_base_length, prev_rows, row0, h_total, row0 - BOUND_Y,
+                           prev_rows, BOUND_Y, BOUND_X)
+    LAUNCHES["temporal_band"] += 1
+    return out
+
+
+def _launch_moments(color, moments, gbuf: GBuffer, history_len, phi_colour: float,
+                    phi_normal: float):
+    h, w = color.shape[:2]
+    check(color, "color", (h, w, 4), (torch.float32,))
+    check(moments, "moments", (h, w, 2), (torch.float32,))
+    check(history_len, "history_len", (h, w), (torch.int32,))
+    _check_gbuffer(gbuf, h, w, ("depth", "depth_deriv", "normal"))
+    out = torch.empty((h, w, 4), dtype=torch.float32, device=color.device)
+    launch(library().svgf_moments, color.device, *map(ptr, (
+        color, moments, gbuf.depth, gbuf.depth_deriv, gbuf.normal, history_len, out)),
+        h, w, phi_colour, phi_normal, _normal_squarings(phi_normal))
+    return out
 
 
 def filter_moments(color, moments, gbuf: GBuffer, history_len, phi_colour: float,
@@ -104,46 +175,94 @@ def filter_moments(color, moments, gbuf: GBuffer, history_len, phi_colour: float
     thread per pixel, out-of-image taps skipped."""
     if on_cpu(color, moments, history_len, gbuf.depth, gbuf.depth_deriv, gbuf.normal):
         return svgf.filter_moments(color, moments, gbuf, history_len, phi_colour, phi_normal)
-    h, w = color.shape[:2]
-    check(color, "color", (h, w, 4), (torch.float32,))
-    check(moments, "moments", (h, w, 2), (torch.float32,))
-    check(history_len, "history_len", (h, w), (torch.int32,))
-    _check_gbuffer(gbuf, h, w, ("depth", "depth_deriv", "normal"))
-    out = torch.empty((h, w, 4), dtype=torch.float32, device=color.device)
-    launch(library().svgf_moments, color.device, *map(ptr, (
-        color, moments, gbuf.depth, gbuf.depth_deriv, gbuf.normal, history_len, out)),
-        h, w, phi_colour, phi_normal, _normal_squarings(phi_normal))
+    out = _launch_moments(color, moments, gbuf, history_len, phi_colour, phi_normal)
     LAUNCHES["moments"] += 1
     return out
 
 
+def filter_moments_band(color, moments, gbuf: GBuffer, history_len, phi_colour: float,
+                        phi_normal: float):
+    """K8: K2's kernel (csrc/moments.cu) on a band extended by 3 rows on
+    each side, zero at the image's top and bottom; plain version
+    svgf.filter_moments. A zero row's normal gives its taps weight 0 and
+    its depth 0 the 1e30 sentinel, so the band's inner rows equal the
+    whole frame's.
+
+    Replaces svgf_tpu/kernels/moments_pallas.py filter_moments_pallas
+    (HWC input, zero-padded by 3); K2's bytes and operations."""
+    if on_cpu(color, moments, history_len, gbuf.depth, gbuf.depth_deriv, gbuf.normal):
+        return svgf.filter_moments(color, moments, gbuf, history_len, phi_colour, phi_normal)
+    out = _launch_moments(color, moments, gbuf, history_len, phi_colour, phi_normal)
+    LAUNCHES["moments_band"] += 1
+    return out
+
+
+def _launch_atrous_step(src, out, gbuf: GBuffer, step: int, phi_colour: float,
+                        phi_normal: float) -> None:
+    h, w = src.shape[:2]
+    launch(library().svgf_atrous_step, src.device,
+           *map(ptr, (src, gbuf.depth, gbuf.depth_deriv, gbuf.normal, out)),
+           h, w, step, phi_colour, phi_normal, _normal_squarings(phi_normal))
+
+
+def _check_atrous(img, gbuf: GBuffer) -> None:
+    h, w = img.shape[:2]
+    check(img, "img", (h, w, 4), (torch.float32,))
+    _check_gbuffer(gbuf, h, w, ("depth", "depth_deriv", "normal"))
+
+
 def wavelet_filter(img, gbuf: GBuffer, steps: int, phi_colour: float, phi_normal: float):
-    """K3 (csrc/atrous.cu), launched once per step; plain version
+    """K3 and K9a (csrc/atrous.cu), launched once per step; plain version
     svgf.wavelet_filter. Returns (final, feedback, second_last), where
     feedback is iteration 0's output, kept in its own buffer while the
     later steps ping-pong between two others.
 
-    Replaces svgf_tpu/kernels/planar.py atrous_chain_planar_v2. Bound by
-    memory and L2: 25 taps of 32 B read and 16 B written per pixel and
-    step; one thread per pixel, a warp's taps coalesce."""
+    Replaces svgf_tpu/kernels/planar.py atrous_chain_planar_v2 and
+    atrous_pallas.py atrous_chain_pallas. Bound by memory and L2: 25 taps
+    of 32 B read and 16 B written per pixel and step; one thread per
+    pixel, a warp's taps coalesce."""
     if on_cpu(img, gbuf.depth, gbuf.depth_deriv, gbuf.normal):
         return svgf.wavelet_filter(img, gbuf, steps, phi_colour, phi_normal)
-    h, w = img.shape[:2]
-    check(img, "img", (h, w, 4), (torch.float32,))
-    _check_gbuffer(gbuf, h, w, ("depth", "depth_deriv", "normal"))
-    fn = library().svgf_atrous_step
-    squarings = _normal_squarings(phi_normal)
+    _check_atrous(img, gbuf)
     bufs = [torch.empty_like(img) for _ in range(min(steps, 3))]
     feedback = prev = out = img
     for i in range(steps):
         prev = out
         out = bufs[0] if i == 0 else bufs[1 + (i - 1) % 2]
-        launch(fn, img.device, *map(ptr, (prev, gbuf.depth, gbuf.depth_deriv, gbuf.normal, out)),
-                h, w, 1 << i, phi_colour, phi_normal, squarings)
+        _launch_atrous_step(prev, out, gbuf, 1 << i, phi_colour, phi_normal)
         LAUNCHES["atrous"] += 1
         if i == 0:
             feedback = out
     return out, feedback, prev
+
+
+def atrous_iteration(img, gbuf: GBuffer, step: int, phi_colour: float, phi_normal: float):
+    """K9b: one a-trous step of width `step` (csrc/atrous.cu); plain
+    version svgf.atrous_iteration. On the sharded route the band is
+    extended by 2*step rows on each side, zero at the image's top and
+    bottom: a zero normal makes the tap's weight exactly 0 (0^phi_normal,
+    or 7 squarings of 0 for 128) and its depth the 1e30 sentinel gives a
+    finite depth term, so no NaN reaches the sums.
+
+    Replaces svgf_tpu/kernels/atrous_pallas.py atrous_iteration_pallas;
+    one step of K3's bytes and operations."""
+    if on_cpu(img, gbuf.depth, gbuf.depth_deriv, gbuf.normal):
+        return svgf.atrous_iteration(img, gbuf, step, phi_colour, phi_normal)
+    _check_atrous(img, gbuf)
+    out = torch.empty_like(img)
+    _launch_atrous_step(img, out, gbuf, step, phi_colour, phi_normal)
+    LAUNCHES["atrous_iteration"] += 1
+    return out
+
+
+def _launch_taa(filtered, history):
+    h, w = filtered.shape[:2]
+    check(filtered, "filtered", (h, w, 4), (torch.float32,))
+    check(history, "history", (h, w, 4), tuple(_STATE_TYPES))
+    out = torch.empty((h, w, 4), dtype=torch.float32, device=filtered.device)
+    fn = getattr(library(), f"svgf_taa_{_STATE_TYPES[history.dtype]}")
+    launch(fn, filtered.device, ptr(filtered), ptr(history), ptr(out), h, w)
+    return out
 
 
 def taa(filtered, history):
@@ -154,11 +273,21 @@ def taa(filtered, history):
     per pixel; one thread per pixel, edge-clamped taps."""
     if on_cpu(filtered, history):
         return svgf.taa(filtered, history)
-    h, w = filtered.shape[:2]
-    check(filtered, "filtered", (h, w, 4), (torch.float32,))
-    check(history, "history", (h, w, 4), tuple(_STATE_TYPES))
-    out = torch.empty((h, w, 4), dtype=torch.float32, device=filtered.device)
-    fn = getattr(library(), f"svgf_taa_{_STATE_TYPES[history.dtype]}")
-    launch(fn, filtered.device, ptr(filtered), ptr(history), ptr(out), h, w)
+    out = _launch_taa(filtered, history)
     LAUNCHES["taa"] += 1
+    return out
+
+
+def taa_band(filtered, history):
+    """K10: K4's kernel (csrc/taa.cu) on a band extended by one row on each
+    side, the band's own edge row at the image's top and bottom; plain
+    version svgf.taa. The kernel clamps its taps to the extended band,
+    which then reads what the whole frame's clamped taps read.
+
+    Replaces svgf_tpu/kernels/taa_pallas.py taa_pallas (HWC input,
+    edge-padded by 1); K4's bytes and operations."""
+    if on_cpu(filtered, history):
+        return svgf.taa(filtered, history)
+    out = _launch_taa(filtered, history)
+    LAUNCHES["taa_band"] += 1
     return out

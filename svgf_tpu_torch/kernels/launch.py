@@ -11,7 +11,8 @@ import torch
 # Kernel launches per wrapper, counted where the wrapper launches its
 # kernel and nowhere else; chip_smoke.py reads them around the main path.
 LAUNCHES = {"temporal": 0, "moments": 0, "atrous": 0, "taa": 0,
-            "intersect_dense": 0, "intersect_clustered": 0}
+            "intersect_dense": 0, "intersect_clustered": 0,
+            "temporal_band": 0, "moments_band": 0, "atrous_iteration": 0, "taa_band": 0}
 
 
 def reset_launches() -> None:

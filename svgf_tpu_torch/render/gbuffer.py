@@ -17,13 +17,18 @@ from svgf_tpu_torch.ops.lights import interp
 from svgf_tpu_torch.render.types import GBuffer
 
 
-def camera_rays(cam_frame, cam_proj, h: int, w: int, jitter=None):
+def camera_rays(cam_frame, cam_proj, h: int, w: int, jitter=None, row0: int = 0,
+                h_total: int | None = None, col0: int = 0, w_total: int | None = None):
     """Primary rays through pixel centres (+ optional per-pixel jitter in
     pixels, (h, w, 2)), as flat (h*w, 3) origins and directions (reference
-    GetRay, Common.cuh:333-343)."""
+    GetRay, Common.cuh:333-343). With row0/h_total (col0/w_total) the rays
+    are those of the pixel rectangle [row0, row0+h) x [col0, col0+w) of an
+    (h_total, w_total) image: a band of the row-sharded route."""
     dev = cam_frame.device
-    r = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
-    c = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    h_total = h if h_total is None else h_total
+    w_total = w if w_total is None else w_total
+    r = (torch.arange(h, dtype=torch.float32, device=dev) + row0)[:, None].expand(h, w)
+    c = (torch.arange(w, dtype=torch.float32, device=dev) + col0)[None, :].expand(h, w)
     if jitter is None:
         jx = jy = 0.0
     else:
@@ -32,8 +37,8 @@ def camera_rays(cam_frame, cam_proj, h: int, w: int, jitter=None):
     # by the constant image size: rays through a corner edge of the scene
     # then pick the same side as in svgf_tpu
     one = torch.ones((), device=dev)
-    u = (c + 0.5 + jx) * (one / w)
-    v = 1.0 - (r + 0.5 + jy) * (one / h)     # NDC y is up
+    u = (c + 0.5 + jx) * (one / w_total)
+    v = 1.0 - (r + 0.5 + jy) * (one / h_total)     # NDC y is up
     x = (2.0 * u - 1.0) / cam_proj[0, 0]
     y = (2.0 * v - 1.0) / cam_proj[1, 1]
     d = normalize(torch.stack([x, y, -torch.ones_like(x)], dim=-1))
@@ -95,16 +100,24 @@ def pad_rows(x, pad: int):
 
 
 def raster_gbuffer(scene, cam_idx: int, h: int, w: int, num_chunks: int = 1,
-                   mode: str = "off", block: bool = False) -> GBuffer:
+                   mode: str = "off", block: bool = False, row0: int = 0,
+                   h_total: int | None = None, col0: int = 0,
+                   w_total: int | None = None) -> GBuffer:
     """Trace primary visibility and fill every G-buffer channel, in
     `num_chunks` sequential ray chunks. `mode` is the intersector policy;
     `block` traces the rays in 64x64 pixel blocks, the lane order of large
-    scenes (render.pathtrace.make_block_order)."""
+    scenes (render.pathtrace.make_block_order). row0/h_total (col0/w_total)
+    render the pixel rectangle [row0, row0+h) x [col0, col0+w) of the full
+    image; the depth derivative at its last row and column is then the
+    clamped one, which the sharded route replaces."""
+    h_total = h if h_total is None else h_total
+    w_total = w if w_total is None else w_total
     frame = scene.cam_frame[cam_idx]
     proj = scene.cam_proj[cam_idx]
     view = torch.linalg.inv(frame)
     prev_view = torch.linalg.inv(scene.cam_prev_frame[cam_idx])
-    ro, rd = camera_rays(frame, proj, h, w)
+    ro, rd = camera_rays(frame, proj, h, w, row0=row0, h_total=h_total, col0=col0,
+                         w_total=w_total)
     unblock = None
     if block:
         from svgf_tpu_torch.render.pathtrace import make_block_order
@@ -118,7 +131,7 @@ def raster_gbuffer(scene, cam_idx: int, h: int, w: int, num_chunks: int = 1,
     ro, rd = pad_rows(ro, pad), pad_rows(rd, pad)
     parts = [
         _gbuffer_rays(scene, frame, view, prev_view, proj,
-                      ro[k * rc:(k + 1) * rc], rd[k * rc:(k + 1) * rc], h, w, mode)
+                      ro[k * rc:(k + 1) * rc], rd[k * rc:(k + 1) * rc], h_total, w_total, mode)
         for k in range(num_chunks)
     ]
     fields = [torch.cat(f)[:R] if num_chunks > 1 else f[0] for f in zip(*parts)]

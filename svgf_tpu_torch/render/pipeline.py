@@ -210,7 +210,9 @@ class Renderer:
 
     def __init__(self, scene, config: RenderConfig, device="cuda"):
         if config.mesh.tiles_y * config.mesh.tiles_x != 1:
-            raise NotImplementedError("multi-device meshes are not ported to svgf_tpu_torch yet")
+            raise NotImplementedError(
+                "Renderer runs on one device; for a row mesh, one process per GPU runs "
+                "svgf_tpu_torch.parallel.make_sharded_step (the tiled mesh is not ported yet)")
         self.scene = scene
         self.config = config
         self.device = target_device(device)

@@ -1,8 +1,9 @@
 """SVGF filter stages, plain torch (svgf_tpu/render/svgf.py; reference
 src/Filter.cuh).
 
-These are the plain versions of the four CUDA kernels in
-svgf_tpu_torch/csrc: the CPU tests hold them against the JAX stages, and
+These are the plain versions of the CUDA kernels in svgf_tpu_torch/csrc
+(temporal_filter_band is the motion-bounded band reprojection of the
+row-sharded route): the CPU tests hold them against the JAX stages, and
 chip_smoke.py holds each kernel against them on the card. Each stage keeps
 its JAX twin's operation and tap order, and every reference quirk that twin
 reproduces (clamped loads, truncated motion vectors, the 4/h variance
@@ -70,29 +71,54 @@ class TemporalResult(NamedTuple):
     reprojected: torch.Tensor  # (H, W) bool — the disocclusion mask
 
 
+BOUND_Y = 8    # K7's motion bound in rows (svgf_tpu/kernels/temporal_pallas.py:46)
+BOUND_X = 63   # and in columns
+
+
 def temporal_filter(current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer,
                     prev_moments, prev_history, depth_threshold: float,
-                    normal_threshold: float, history_base_length: int) -> TemporalResult:
-    """Reproject the previous frame at pixel + trunc(motion), with no bound
-    on the motion (svgf_tpu/render/svgf.py:103, the unbounded gather), and
-    blend with an EMA of rate 1/history. The prev_* state may be stored at
-    any float dtype; it is read as float32."""
+                    normal_threshold: float, history_base_length: int,
+                    row0: int = 0, col0: int = 0, prev_row0: int = 0, prev_col0: int = 0,
+                    full_h: int | None = None, full_w: int | None = None,
+                    motion_bound: tuple[int, int] | None = None) -> TemporalResult:
+    """Reproject the previous frame at pixel + trunc(motion) and blend with
+    an EMA of rate 1/history (svgf_tpu/render/svgf.py:103). The prev_*
+    state may be stored at any float dtype; it is read as float32.
+
+    `row0`/`col0` place this band's first pixel in the full image. The
+    prev_* arrays cover the full image (the default) or a window of it
+    whose first pixel is global (`prev_row0`, `prev_col0`); a target
+    outside the window counts as off-screen. `full_h`/`full_w` give the
+    image size for the on-screen test (default: the prev window's). With
+    no `motion_bound` the gather is unbounded; with (my, mx) a motion
+    beyond |my| or |mx| pixels is a disocclusion, as in K7
+    (temporal_filter_band)."""
     h, w = current.shape[:2]
+    h_prev, w_prev = prev_color.shape[:2]
+    full_h = h_prev if full_h is None else full_h
+    full_w = w_prev if full_w is None else full_w
     dev = current.device
     cur = load01(current[..., :3])
 
     motion = gbuf.motion.float()
-    r = torch.arange(h, device=dev, dtype=torch.int32)[:, None]
-    c = torch.arange(w, device=dev, dtype=torch.int32)[None, :]
+    r = torch.arange(h, device=dev, dtype=torch.int32)[:, None] + row0
+    c = torch.arange(w, device=dev, dtype=torch.int32)[None, :] + col0
     # ivec2 cast truncates toward zero (Filter.cuh:232); motion is (x, y)
-    px = c + motion[..., 0].to(torch.int32)
-    py = r + motion[..., 1].to(torch.int32)
-    on_screen = (px >= 0) & (px < w) & (py >= 0) & (py < h)
-    flat = (torch.clamp(py, 0, h - 1) * w + torch.clamp(px, 0, w - 1)).reshape(-1)
+    mx = motion[..., 0].to(torch.int32)
+    my = motion[..., 1].to(torch.int32)
+    px, py = c + mx, r + my
+    on_screen = (px >= 0) & (px < full_w) & (py >= 0) & (py < full_h)
+    # window-local coordinates into the prev arrays
+    px, py = px - prev_col0, py - prev_row0
+    on_screen = on_screen & (px >= 0) & (px < w_prev) & (py >= 0) & (py < h_prev)
+    if motion_bound is not None:
+        by, bx = motion_bound
+        on_screen = on_screen & (my >= -by) & (my <= by) & (mx >= -bx) & (mx <= bx)
+    flat = (torch.clamp(py, 0, h_prev - 1) * w_prev + torch.clamp(px, 0, w_prev - 1)).reshape(-1)
 
     def gather(x):
         x = x.float()
-        return x.reshape((h * w,) + x.shape[2:])[flat].reshape((h, w) + x.shape[2:])
+        return x.reshape((h_prev * w_prev,) + x.shape[2:])[flat].reshape((h, w) + x.shape[2:])
 
     z_cur = get_depth(gbuf.depth)
     z_prev = get_depth(gather(prev_gbuf.depth))
@@ -121,6 +147,24 @@ def temporal_filter(current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer,
 
     out = store01(torch.cat([new_col, variance[..., None]], dim=-1))
     return TemporalResult(color=out, moments=moments, history_len=history, reprojected=valid)
+
+
+def temporal_filter_band(current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer,
+                         prev_moments, prev_history, depth_threshold: float,
+                         normal_threshold: float, history_base_length: int,
+                         row0: int, h_total: int) -> TemporalResult:
+    """The temporal filter of one row band under K7's motion bound
+    (svgf_tpu/kernels/temporal_pallas.py:80-88): the band's first row is
+    global `row0` of an `h_total`-row image, and the prev_* arrays are a
+    window of Hs + 2*BOUND_Y rows whose first row is global row0 - BOUND_Y
+    (zero outside the image). A target is gathered when it is on the
+    screen and |my| <= BOUND_Y, |mx| <= BOUND_X; any other motion is a
+    disocclusion. The whole frame is the band row0=0, h_total=H with
+    BOUND_Y zero rows above and below."""
+    return temporal_filter(current, prev_color, gbuf, prev_gbuf, prev_moments, prev_history,
+                           depth_threshold, normal_threshold, history_base_length,
+                           row0=row0, prev_row0=row0 - BOUND_Y, full_h=h_total,
+                           motion_bound=(BOUND_Y, BOUND_X))
 
 
 # ---------------------------------------------------------------------------

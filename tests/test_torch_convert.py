@@ -94,3 +94,32 @@ def test_jax_state_renders_third_frame():
         d = np.abs(getattr(got, tap).numpy() - getattr(out, tap))
         assert d.mean() < 1e-4, (tap, d.mean())
         assert (d > max_tol).mean() == 0.0, (tap, d.max())
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_state_bands_round_trip(n):
+    """temporal_state_band cuts a full-image JAX state into rank r's rows
+    [r*H/n, (r+1)*H/n); stack_bands puts the ranks' bands back together."""
+    import jax.numpy as jnp
+
+    from svgf_tpu.render.types import TemporalState as JState
+
+    rng = np.random.default_rng(n)
+    js = jax.tree.map(np.asarray, JState.initial(H, W, jnp.float16))
+    js = js._replace(
+        color=rng.uniform(0, 1, js.color.shape).astype(np.float16),
+        history_len=rng.integers(1, 24, js.history_len.shape).astype(np.int32),
+        gbuffer=js.gbuffer._replace(depth=rng.uniform(1, 3, (H, W)).astype(np.float16)),
+        frame_idx=np.int32(5))
+    bands = [convert.temporal_state_band(js, r, n, "cpu") for r in range(n)]
+    hs = H // n
+    for r, band in enumerate(bands):
+        assert band.color.shape == (hs, W, 4) and band.frame_idx == 5
+        assert np.array_equal(band.color.numpy(), js.color[r * hs:(r + 1) * hs])
+        assert np.array_equal(band.gbuffer.depth.numpy(), js.gbuffer.depth[r * hs:(r + 1) * hs])
+    whole, stacked = convert.temporal_state(js, "cpu"), convert.stack_bands(bands)
+    for f in ("color", "moments", "history_len", "taa_history"):
+        assert torch.equal(getattr(stacked, f), getattr(whole, f)), f
+    for a, b in zip(stacked.gbuffer, whole.gbuffer):
+        assert torch.equal(a, b)
+    assert stacked.frame_idx == whole.frame_idx == 5

@@ -171,7 +171,60 @@ def test_wrappers_on_cpu_are_the_plain_versions():
         assert torch.equal(a, b)
     assert torch.equal(K.taa(m, state.taa_history), P.taa(m, state.taa_history))
     assert K.LAUNCHES == dict.fromkeys(
-        ("temporal", "moments", "atrous", "taa", "intersect_dense", "intersect_clustered"), 0)
+        ("temporal", "moments", "atrous", "taa", "intersect_dense", "intersect_clustered",
+         "temporal_band", "moments_band", "atrous_iteration", "taa_band"), 0)
+
+
+def _band_calls(radiance, gbuf, state):
+    """(wrapper, plain version, arguments) of the four band wrappers; the
+    previous state is a window of 2*BOUND_Y more rows than the band."""
+    h, w = radiance.shape[:2]
+    win = TemporalState.initial(h + 2 * P.BOUND_Y, w, torch.float16, radiance.device)
+    m = torch.ones((h, w, 4), device=radiance.device)
+    t_args = (radiance, win.color, gbuf, win.gbuffer, win.moments, win.history_len,
+              0.8, 0.9, 24, 16, 4 * h)
+    return [
+        (K.temporal_filter_band, P.temporal_filter_band, t_args, "temporal_band"),
+        (K.filter_moments_band, P.filter_moments,
+         (m, m[..., :2], gbuf, state.history_len, 10.0, 128.0), "moments_band"),
+        (K.atrous_iteration, P.atrous_iteration, (m, gbuf, 4, 10.0, 128.0), "atrous_iteration"),
+        (K.taa_band, P.taa, (m, state.taa_history), "taa_band"),
+    ]
+
+
+def test_band_wrappers_on_cpu_are_the_plain_versions():
+    radiance, gbuf, state = _inputs()
+    K.reset_launches()
+    for wrapper, plain, args, _ in _band_calls(radiance, gbuf, state):
+        got, want = wrapper(*args), plain(*args)
+        for a, b in zip(got if isinstance(got, tuple) else [got],
+                        want if isinstance(want, tuple) else [want]):
+            assert torch.equal(a, b), wrapper.__name__
+    assert all(v == 0 for v in K.LAUNCHES.values()), K.LAUNCHES
+
+
+def test_band_wrappers_reject_devices_without_a_kernel():
+    radiance, gbuf, state = _inputs()
+    for wrapper, _, args, _ in _band_calls(radiance, gbuf, state):
+        meta = [torch.empty_like(a, device="meta") if isinstance(a, torch.Tensor) else a
+                for a in args]
+        with pytest.raises(ValueError):   # mixed devices
+            wrapper(*meta[:1], *args[1:])
+
+
+def test_band_wrappers_launch_on_the_card():
+    """CUDA tensors launch the kernel, once a call, and agree with the plain
+    version (chip_smoke.py does the same at 1080p)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    radiance, gbuf, state = _inputs(device="cuda")
+    K.reset_launches()
+    for wrapper, plain, args, name in _band_calls(radiance, gbuf, state):
+        got, want = wrapper(*args), plain(*args)
+        for a, b in zip(got if isinstance(got, tuple) else [got],
+                        want if isinstance(want, tuple) else [want]):
+            assert torch.allclose(a.float(), b.float(), atol=3e-5), name
+        assert K.LAUNCHES[name] == 1, (name, K.LAUNCHES)
 
 
 def test_wrappers_reject_devices_without_a_kernel():
@@ -191,6 +244,6 @@ def test_normal_power_squarings(phi, expect):
 def test_library_path_is_keyed_by_the_sources():
     path = build.library_path()
     assert path.parent == build.BUILD_DIR and path == build.library_path()
-    assert len(sorted(build.CSRC.glob("*.cu"))) == 6
+    assert len(sorted(build.CSRC.glob("*.cu"))) == 6   # K7 is temporal.cu's band entry
     for name in build.SIGNATURES:
         assert any(name in src.read_text() for src in build.CSRC.glob("*.cu")), name
