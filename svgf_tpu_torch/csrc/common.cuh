@@ -33,17 +33,27 @@ __device__ __forceinline__ float get_depth(float d) { return d == 0.f ? kInvalid
 
 // x^phi_normal: `squarings` >= 0 when phi_normal is 2^squarings (the
 // default 128 is 7 squarings, as the TPU kernels compute it), else powf.
+// A kernel that knows the count when it is compiled passes it as
+// kSquarings >= 0, and the squarings unroll: a loop of run-time length
+// costs a tap of the a-trous filter more than its 7 multiplies.
+template <int kSquarings = -1>
 __device__ __forceinline__ float pow_normal(float x, float phi_normal, int squarings) {
+  if (kSquarings >= 0) {
+#pragma unroll
+    for (int i = 0; i < kSquarings; ++i) x = x * x;
+    return x;
+  }
   if (squarings < 0) return powf(x, phi_normal);
   for (int i = 0; i < squarings; ++i) x = x * x;
   return x;
 }
 
 // Edge-stopping weight (Filter.cuh:407-427); `ndot` is dot(n_c, n_p).
+template <int kSquarings = -1>
 __device__ __forceinline__ float compute_weight(float z_c, float z_p, float phi_depth, float ndot,
                                                 float phi_normal, int squarings, float l_c,
                                                 float l_p, float phi_l) {
-  float w_normal = pow_normal(clamp01(ndot), phi_normal, squarings);
+  float w_normal = pow_normal<kSquarings>(clamp01(ndot), phi_normal, squarings);
   float w_z = phi_depth == 0.f ? 0.f : fabsf(z_c - z_p) / phi_depth;
   float w_l = fabsf(l_c - l_p) / phi_l;
   return expf(-max_nan(w_l, 0.f) - max_nan(w_z, 0.f)) * w_normal;

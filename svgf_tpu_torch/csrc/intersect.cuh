@@ -2,14 +2,16 @@
 // intersect_clustered.cu).
 //
 // Both read the world triangle soup packed once per scene by the wrapper
-// (svgf_tpu_torch/kernels/intersect.py) as three float4 a column:
-//   (v0.x, v0.y, v0.z, instance id bits), (e1, 0), (e2, 0)
+// (svgf_tpu_torch/kernels/intersect.py packed_scene) as three float4 a
+// column:
+//   (v0.x, v0.y, v0.z, instance id bits), (e1, prim id bits), (e2, material id bits)
 // with e1 = v1 - v0 and e2 = v2 - v0: the float subtractions that
 // ray_triangle_comp (svgf_tpu_torch/ops/geometry.py) makes per test give
 // the same values once per triangle. The Moller-Trumbore test below keeps
-// that function's operation order and constants, and the build passes
-// --fmad=false and keeps IEEE division, so a kernel's t equals the plain
-// version's bit for bit on the same ray and triangle.
+// that function's operation order and constants (and so
+// ray_triangle_comp_raw's: its t, u and v), and the build passes
+// --fmad=false and keeps IEEE division, so a kernel's t, u and v equal the
+// plain version's bit for bit on the same ray and triangle.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,19 +24,24 @@ constexpr float kMaxLength = 1e30f;  // ops/geometry.py MAX_LENGTH: the miss dis
 
 struct Tri {
   float3 v0, e1, e2;
-  int inst;
+  int inst, prim, mat;
 };
 
 __device__ __forceinline__ Tri load_tri(const float4* __restrict__ tris, int col) {
   const float4 a = __ldg(tris + 3 * col), b = __ldg(tris + 3 * col + 1),
                c = __ldg(tris + 3 * col + 2);
   return Tri{make_float3(a.x, a.y, a.z), make_float3(b.x, b.y, b.z), make_float3(c.x, c.y, c.z),
-             __float_as_int(a.w)};
+             __float_as_int(a.w), __float_as_int(b.w), __float_as_int(c.w)};
 }
 
-// Moller-Trumbore (reference Common.cuh:509-536): t of the hit, or
-// kMaxLength when the ray misses the triangle.
-__device__ __forceinline__ float mt_hit(float3 o, float3 d, float3 v0, float3 e1, float3 e2) {
+struct Crossing {
+  float t, u, v;
+  bool hit;
+};
+
+// Moller-Trumbore (reference Common.cuh:509-536): the raw t, u, v of the
+// ray against the triangle's plane, and whether it hits the triangle.
+__device__ __forceinline__ Crossing mt_test(float3 o, float3 d, float3 v0, float3 e1, float3 e2) {
   const float hx = d.y * e2.z - d.z * e2.y;
   const float hy = d.z * e2.x - d.x * e2.z;
   const float hz = d.x * e2.y - d.y * e2.x;
@@ -50,7 +57,13 @@ __device__ __forceinline__ float mt_hit(float3 o, float3 d, float3 v0, float3 e1
   const float t = f * (e2.x * qx + e2.y * qy + e2.z * qz);
   const bool hit = !parallel && u >= 0.f && u <= 1.f && v >= 0.f && u + v <= 1.f &&
                    t > SVGF_F(1e-8);
-  return hit ? t : kMaxLength;
+  return Crossing{t, u, v, hit};
+}
+
+// t of the hit, or kMaxLength when the ray misses the triangle.
+__device__ __forceinline__ float mt_hit(float3 o, float3 d, float3 v0, float3 e1, float3 e2) {
+  const Crossing c = mt_test(o, d, v0, e1, e2);
+  return c.hit ? c.t : kMaxLength;
 }
 
 __device__ __forceinline__ float3 load3(const float* __restrict__ p, long i) {

@@ -197,12 +197,34 @@ def filter_moments_band(color, moments, gbuf: GBuffer, history_len, phi_colour: 
     return out
 
 
+# lattice points (rows, columns) a block of csrc/atrous.cu filters (kLatY,
+# kLatX), and the rows each of its threads filters (kRowsPerThread)
+ATROUS_TILE = (16, 32)
+ATROUS_ROWS_PER_THREAD = 2
+
+
+def atrous_lattice_grid(h: int, w: int, step: int) -> tuple[int, int, int, int]:
+    """K3's launch grid for a step of width `step` on an h x w image. The
+    step is one step-1 filter on each lattice img[a::step, b::step]: one
+    residue (a, b) per a < min(step, h), b < min(step, w), each lattice cut
+    into tiles of ATROUS_TILE points, as many as the largest lattice (a =
+    b = 0) needs. Returns (blocks, residues a row, tiles a lattice row,
+    residues); block k takes residue k % residues and tile k // residues."""
+    cdiv = lambda n, d: -(-n // d)
+    ty, tx = ATROUS_TILE
+    tiles_y, tiles_x = cdiv(cdiv(h, step), ty), cdiv(cdiv(w, step), tx)
+    res_w = min(step, w)
+    n_res = min(step, h) * res_w
+    return n_res * tiles_y * tiles_x, res_w, tiles_x, n_res
+
+
 def _launch_atrous_step(src, out, gbuf: GBuffer, step: int, phi_colour: float,
                         phi_normal: float) -> None:
     h, w = src.shape[:2]
     launch(library().svgf_atrous_step, src.device,
            *map(ptr, (src, gbuf.depth, gbuf.depth_deriv, gbuf.normal, out)),
-           h, w, step, phi_colour, phi_normal, _normal_squarings(phi_normal))
+           h, w, step, phi_colour, phi_normal, _normal_squarings(phi_normal),
+           *atrous_lattice_grid(h, w, step))
 
 
 def _check_atrous(img, gbuf: GBuffer) -> None:
@@ -218,9 +240,11 @@ def wavelet_filter(img, gbuf: GBuffer, steps: int, phi_colour: float, phi_normal
     later steps ping-pong between two others.
 
     Replaces svgf_tpu/kernels/planar.py atrous_chain_planar_v2 and
-    atrous_pallas.py atrous_chain_pallas. Bound by memory and L2: 25 taps
-    of 32 B read and 16 B written per pixel and step; one thread per
-    pixel, a warp's taps coalesce."""
+    atrous_pallas.py atrous_chain_pallas. Bound by the FP32 rate: 24 taps
+    of ~52 operations against 48 B per pixel and step. A step of width s
+    is s^2 step-1 filters on the lattices img[a::s, b::s]; a block stages
+    a lattice tile and its 2-point halo in shared memory once, and its
+    taps read them there (`atrous_lattice_grid`)."""
     if on_cpu(img, gbuf.depth, gbuf.depth_deriv, gbuf.normal):
         return svgf.wavelet_filter(img, gbuf, steps, phi_colour, phi_normal)
     _check_atrous(img, gbuf)
@@ -245,7 +269,7 @@ def atrous_iteration(img, gbuf: GBuffer, step: int, phi_colour: float, phi_norma
     finite depth term, so no NaN reaches the sums.
 
     Replaces svgf_tpu/kernels/atrous_pallas.py atrous_iteration_pallas;
-    one step of K3's bytes and operations."""
+    one step of K3's bytes and operations, on K3's lattice grid."""
     if on_cpu(img, gbuf.depth, gbuf.depth_deriv, gbuf.normal):
         return svgf.atrous_iteration(img, gbuf, step, phi_colour, phi_normal)
     _check_atrous(img, gbuf)

@@ -8,10 +8,13 @@
 Each takes the arguments of its plain version (ops/intersect.py
 intersect_dense, traverse_scene_bvh) and returns a Hit. Given CPU tensors
 it runs the plain version; given CUDA tensors it launches its kernel on
-the current stream, or raises; it never falls back. The kernel only
-chooses the winning soup column of each ray; `hit_from_winner` then
-gathers the winner's vertices and ids and recomputes t/u/v in torch, so
-they stay differentiable with respect to the ray, as in svgf_tpu.
+the current stream, or raises; it never falls back. The dense kernel
+writes the whole Hit in its one launch. When autograd needs t/u/v as
+functions of the ray or the soup (`needs_recompute`), it also writes the
+winning soup column, and `hit_from_winner` gathers the winner and
+recomputes t/u/v in torch, as svgf_tpu's wrapper does to keep them
+differentiable. The scene-BVH kernel chooses the column only, and
+`hit_from_winner` builds its Hit.
 
 The kernels read the soup (and the scene BVH's nodes) packed once per
 scene into 16-byte records (`packed_scene`), kept on the device for the
@@ -27,7 +30,7 @@ import torch
 from svgf_tpu_torch.kernels.build import library
 from svgf_tpu_torch.kernels.launch import LAUNCHES, check, launch, on_cpu, ptr
 from svgf_tpu_torch.ops.intersect import (
-    hit_from_winner, intersect_dense, start_dist, traverse_scene_bvh,
+    Hit, hit_from_winner, intersect_dense, start_dist, traverse_scene_bvh,
 )
 
 # packed copies, keyed by the source tensors' ids; an entry holds the
@@ -38,15 +41,15 @@ _PACKED_MAX = 4
 
 
 def _sources(scene):
-    return (scene.world_tris9, scene.world_tri_inst, scene.wbvh_bounds6, scene.wbvh_skip,
-            scene.wbvh_leaf_tri)
+    return (scene.world_tris9, scene.world_tri_inst, scene.world_tri_prim, scene.world_tri_mat,
+            scene.wbvh_bounds6, scene.wbvh_skip, scene.wbvh_leaf_tri)
 
 
 def packed_scene(scene):
     """(tris (T, 12) f32, nodes (N, 8) f32) on the scene's device.
 
-    tris: per soup column [v0.xyz, instance id bits | e1.xyz, 0 | e2.xyz, 0]
-    with e1 = v1 - v0, e2 = v2 - v0. nodes: per scene-BVH node
+    tris: per soup column [v0.xyz, instance id bits | e1.xyz, prim id bits |
+    e2.xyz, material id bits] with e1 = v1 - v0, e2 = v2 - v0. nodes: per scene-BVH node
     [lo.xyz, skip bits | hi.xyz, leaf column bits]."""
     src = _sources(scene)
     key = tuple(id(t) for t in src)
@@ -55,9 +58,9 @@ def packed_scene(scene):
     if entry is None or entry[1] != versions:
         w = scene.world_tris9
         v0 = w[0:3]
-        zero = torch.zeros_like(v0[:1])
-        tris = torch.cat([v0, scene.world_tri_inst.view(torch.float32)[None],
-                          w[3:6] - v0, zero, w[6:9] - v0, zero]).T.contiguous()
+        bits = lambda ids: ids.view(torch.float32)[None]
+        tris = torch.cat([v0, bits(scene.world_tri_inst), w[3:6] - v0, bits(scene.world_tri_prim),
+                          w[6:9] - v0, bits(scene.world_tri_mat)]).T.contiguous()
         b6 = scene.wbvh_bounds6
         nodes = torch.cat([b6[0:3], scene.wbvh_skip.view(torch.float32)[None],
                            b6[3:6], scene.wbvh_leaf_tri.view(torch.float32)[None]]).T.contiguous()
@@ -69,39 +72,57 @@ def packed_scene(scene):
 
 def _rays(ro, rd, active, tmax):
     """The kernels' ray inputs: contiguous (R, 3) f32 origins and
-    directions, (R,) f32 start distances and (R,) bool active flags."""
+    directions, (R,) f32 start distances (None: MAX_LENGTH) and (R,) bool
+    active flags (None: all active)."""
     R = ro.shape[0]
-    dev = ro.device
     ro = ro.detach().contiguous()
     rd = rd.detach().contiguous()
-    t0 = start_dist(tmax, R, dev).contiguous()
-    act = (torch.ones((R,), dtype=torch.bool, device=dev) if active is None
-           else active.contiguous())
+    t0 = None if tmax is None else start_dist(tmax, R, ro.device).contiguous()
+    act = None if active is None else active.contiguous()
     check(ro, "ro", (R, 3), (torch.float32,))
     check(rd, "rd", (R, 3), (torch.float32,))
-    check(t0, "tmax", (R,), (torch.float32,))
-    check(act, "active", (R,), (torch.bool,))
+    if t0 is not None:
+        check(t0, "tmax", (R,), (torch.float32,))
+    if act is not None:
+        check(act, "active", (R,), (torch.bool,))
     return ro, rd, t0, act
 
 
-def _outputs(R, dev):
-    return (torch.empty((R,), dtype=torch.float32, device=dev),
-            torch.empty((R,), dtype=torch.int32, device=dev))
+def _ptr_or_null(t):
+    return ctypes.c_void_p(None) if t is None else ptr(t)
 
 
-def dense_select(scene, ro, rd, t0, act, only_instance=None):
-    """Launch K5 on prepared rays (`_rays`); returns (best t, column)."""
-    tris, _ = packed_scene(scene)
+def _columns(scene, only_instance):
+    """The soup columns [c0, c1) a search sweeps, and the instance it keeps (-1: all)."""
     if only_instance is None:
-        c0, c1, oi = 0, scene.meta.n_world_tris, -1
-    else:
-        start, count = scene.meta.inst_world_range[only_instance]
-        c0, c1, oi = start, start + count, int(only_instance)
-    out_t, out_col = _outputs(ro.shape[0], ro.device)
-    launch(library().svgf_intersect_dense, ro.device,
-           *map(ptr, (tris, ro, rd, t0, act, out_t, out_col)), c0, c1, oi, ro.shape[0])
+        return 0, scene.meta.n_world_tris, -1
+    start, count = scene.meta.inst_world_range[only_instance]
+    return start, start + count, int(only_instance)
+
+
+def dense_hit(scene, ro, rd, t0, act, only_instance=None, with_col: bool = False):
+    """Launch K5 on prepared rays (`_rays`); returns (the Hit, the winning
+    column (R,) i32 with -1 for none, or None unless `with_col`)."""
+    tris, _ = packed_scene(scene)
+    R, dev = ro.shape[0], ro.device
+    f32 = lambda: torch.empty((R,), dtype=torch.float32, device=dev)
+    i32 = lambda: torch.empty((R,), dtype=torch.int32, device=dev)
+    hit = Hit(dist=f32(), u=f32(), v=f32(), prim=i32(), instance=i32(), material=i32())
+    col = i32() if with_col else None
+    launch(library().svgf_intersect_dense, dev, ptr(tris), ptr(ro), ptr(rd),
+           *map(_ptr_or_null, (t0, act)), *map(ptr, hit), _ptr_or_null(col),
+           *_columns(scene, only_instance), R)
     LAUNCHES["intersect_dense"] += 1
-    return out_t, out_col
+    return hit, col
+
+
+def needs_recompute(scene, ro, rd) -> bool:
+    """Whether autograd needs the Hit's t/u/v as functions of the rays or
+    the soup: then the wrapper recomputes them in torch from the kernel's
+    winner, as svgf_tpu's wrapper does (intersect_pallas.py:582-612). The
+    render path never differentiates a ray, so it takes the kernel's Hit."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (ro, rd, scene.world_tris9))
 
 
 def bvh_select(scene, ro, rd, t0, act, only_instance=None, stats: bool = False):
@@ -109,11 +130,14 @@ def bvh_select(scene, ro, rd, t0, act, only_instance=None, stats: bool = False):
     per-ray [nodes visited, triangles tested] (R, 2) i32 or None)."""
     tris, nodes = packed_scene(scene)
     R = ro.shape[0]
-    out_t, out_col = _outputs(R, ro.device)
+    t0 = start_dist(None, R, ro.device) if t0 is None else t0
+    act = torch.ones((R,), dtype=torch.bool, device=ro.device) if act is None else act
+    out_t = torch.empty((R,), dtype=torch.float32, device=ro.device)
+    out_col = torch.empty((R,), dtype=torch.int32, device=ro.device)
     st = torch.empty((R, 2), dtype=torch.int32, device=ro.device) if stats else None
     launch(library().svgf_intersect_bvh, ro.device,
            *map(ptr, (nodes, tris, ro, rd, t0, act, out_t, out_col)),
-           ptr(st) if stats else ctypes.c_void_p(None),
+           _ptr_or_null(st),
            nodes.shape[0], -1 if only_instance is None else int(only_instance), R)
     LAUNCHES["intersect_clustered"] += 1
     return out_t, out_col, st
@@ -128,17 +152,21 @@ def intersect_dense_kernel(scene, ro, rd, active=None, tmax=None, only_instance=
 
     Replaces svgf_tpu/kernels/intersect_pallas.py intersect_dense_pallas.
     Bound by the FP32 rate at the Cornell box's 36 triangles: 55
-    operations per ray-triangle test against 37 B of ray I/O. One thread
-    per ray sweeps the soup staged through shared memory. A ray without
-    a hit reports ids 0, as the TPU kernel does (the plain version reports
-    the first column's prim and material)."""
+    operations per ray-triangle test against 53 B of ray I/O. The block's
+    active rays, compacted, sweep the soup staged through shared memory,
+    and the kernel writes the Hit. A ray without a hit reports ids 0, as
+    the TPU kernel does (the plain version reports the first column's prim
+    and material). One launch a call; with `needs_recompute`, the same
+    launch and the torch recompute of t/u/v from its winner."""
     extra = () if active is None else (active,)
     if on_cpu(ro, rd, *extra, *_scene_tensors(scene)):
         return intersect_dense(scene, ro, rd, active=active, tmax=tmax,
                                only_instance=only_instance)
     r = _rays(ro, rd, active, tmax)
-    _, col = dense_select(scene, *r, only_instance)
-    return hit_from_winner(scene, ro, rd, col, r[2], active)
+    if not needs_recompute(scene, ro, rd):
+        return dense_hit(scene, *r, only_instance)[0]
+    _, col = dense_hit(scene, *r, only_instance, with_col=True)
+    return hit_from_winner(scene, ro, rd, col, start_dist(tmax, ro.shape[0], ro.device), active)
 
 
 def intersect_clustered_kernel(scene, ro, rd, active=None, tmax=None, only_instance=None):
@@ -154,4 +182,4 @@ def intersect_clustered_kernel(scene, ro, rd, active=None, tmax=None, only_insta
                                   only_instance=only_instance)
     r = _rays(ro, rd, active, tmax)
     _, col, _ = bvh_select(scene, *r, only_instance)
-    return hit_from_winner(scene, ro, rd, col, r[2], active)
+    return hit_from_winner(scene, ro, rd, col, start_dist(tmax, ro.shape[0], ro.device), active)

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from svgf_tpu_torch.core.scene import target_device
+
 
 class GBuffer(NamedTuple):
     """Primary-visibility targets (reference G-buffer, App.cu:746-778).
@@ -32,7 +34,10 @@ class GBuffer(NamedTuple):
     material: torch.Tensor     # (H, W) i32
 
     @staticmethod
-    def zeros(h: int, w: int, dtype=torch.float32, device="cpu") -> "GBuffer":
+    def zeros(h: int, w: int, dtype=torch.float32, device="cuda") -> "GBuffer":
+        """An empty G-buffer on `device`: the card unless told otherwise
+        (raises without one, as Renderer does)."""
+        device = target_device(device)
         f = lambda *c: torch.zeros((h, w) + c, dtype=dtype, device=device)
         i = lambda: torch.full((h, w), -1, dtype=torch.int32, device=device)
         return GBuffer(
@@ -65,7 +70,10 @@ class TemporalState(NamedTuple):
     frame_idx: int
 
     @staticmethod
-    def initial(h: int, w: int, dtype=torch.float16, device="cpu") -> "TemporalState":
+    def initial(h: int, w: int, dtype=torch.float16, device="cuda") -> "TemporalState":
+        """The state before frame 0, on `device`: the card unless told
+        otherwise (raises without one, as Renderer does)."""
+        device = target_device(device)
         return TemporalState(
             color=torch.zeros((h, w, 4), dtype=dtype, device=device),
             moments=torch.zeros((h, w, 2), dtype=dtype, device=device),

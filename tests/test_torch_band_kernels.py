@@ -48,7 +48,7 @@ def jgbuf(f):
 
 
 def tgbuf(f):
-    return GBuffer.zeros(*f["depth"].shape[:2])._replace(**{k: torch.from_numpy(v) for k, v in f.items()})
+    return GBuffer.zeros(*f["depth"].shape[:2], device="cpu")._replace(**{k: torch.from_numpy(v) for k, v in f.items()})
 
 
 def rows(x, r0, r1):
@@ -137,7 +137,7 @@ def jax_temporal():
 
 def port_temporal(cur, g, win, r0, fn=K.temporal_filter_band, **kw):
     t = torch.from_numpy
-    prev = GBuffer.zeros(*win["depth"].shape, torch.float16)._replace(
+    prev = GBuffer.zeros(*win["depth"].shape, torch.float16, "cpu")._replace(
         depth=t(win["depth"]), normal=t(win["normal"]), instance=t(win["instance"]))
     return fn(t(cur), t(win["color"]), tgbuf(g), prev, t(win["moments"]), t(win["history"]),
               *T_ARGS, **kw)

@@ -65,7 +65,7 @@ def jax_gbuf(fields, dtype=jnp.float32):
 
 
 def torch_gbuf(fields, dtype=torch.float32):
-    return GBuffer.zeros(H, W, dtype)._replace(**{k: torch.from_numpy(v) for k, v in fields.items()})
+    return GBuffer.zeros(H, W, dtype, "cpu")._replace(**{k: torch.from_numpy(v) for k, v in fields.items()})
 
 
 def jax_state(prev, state):
@@ -76,7 +76,7 @@ def jax_state(prev, state):
 
 def torch_state(prev, state):
     dt = torch.from_numpy(state["color"]).dtype
-    return TemporalState.initial(H, W, dt)._replace(
+    return TemporalState.initial(H, W, dt, "cpu")._replace(
         gbuffer=torch_gbuf(prev, dt), **{k: torch.from_numpy(v) for k, v in state.items()})
 
 

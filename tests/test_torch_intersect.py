@@ -41,6 +41,9 @@ from svgf_tpu_torch.ops.intersect import (
 from svgf_tpu_torch.scenes.stress import stress_scene
 
 
+HIT_FIELDS = ("dist", "u", "v", "prim", "instance", "material")
+
+
 def _np(x):
     return np.asarray(x.detach().numpy() if isinstance(x, torch.Tensor) else x)
 
@@ -155,6 +158,31 @@ def test_dense_matches_pallas_kernel(cornell, rays, option):
     for f in ("prim", "instance", "material"):
         np.testing.assert_array_equal(_np(getattr(recomputed, f))[miss], 0)
         np.testing.assert_array_equal(_np(getattr(want, f))[both], 0)
+
+
+@pytest.mark.parametrize("rays,option", [("camera", None), ("random", None), ("random", "tmax"),
+                                         ("random", "only_instance"), ("random", "active")])
+def test_dense_hit_equals_the_recompute_of_its_winner(cornell, rays, option):
+    """The premise of K5's in-kernel Hit: the Moller-Trumbore t, u, v of the
+    sweep that picks the winner (intersect_dense) equal, bit for bit, the
+    recompute of the same winner (hit_from_winner, which the wrapper keeps
+    for autograd), with the same ids, on every hit lane."""
+    ja, ta = cornell
+    ro, rd = (_t(x) for x in _cornell_rays(ja, rays, up=option == "only_instance"))
+    R = ro.shape[0]
+    rng = np.random.default_rng(2)
+    active = _t(rng.uniform(size=R) < 0.7) if option == "active" else None
+    tmax = _t(rng.uniform(0.2, 2.5, R).astype(np.float32)) if option == "tmax" else None
+    only = 3 if option == "only_instance" else None
+    t0 = start_dist(tmax, R, "cpu")
+    sweep = intersect_dense(ta, ro, rd, active=active, tmax=tmax, only_instance=only)
+    col = _dense_winner(ta, ro, rd, t0, only, active)
+    rec = hit_from_winner(ta, ro, rd, col, t0, active)
+    hit = (col >= 0).numpy()
+    assert hit.mean() > 0.01 and np.array_equal(_np(sweep.dist) < _np(t0), hit)
+    for f in HIT_FIELDS:
+        assert np.array_equal(_np(getattr(sweep, f))[hit], _np(getattr(rec, f))[hit]), f
+    assert np.array_equal(_np(sweep.dist), _np(rec.dist))
 
 
 def test_dense_recompute_gradient_matches_jax(cornell):

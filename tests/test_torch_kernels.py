@@ -124,18 +124,27 @@ def test_intersect_wrappers_reject_devices_without_a_kernel():
 
 
 def test_default_device_is_the_card():
-    """Renderer and Scene.flatten target CUDA unless told otherwise, and
-    raise rather than fall back to the CPU when there is no card."""
+    """Renderer, Scene.flatten and the state constructors that a caller of
+    render_frame or make_sharded_step starts from target CUDA unless told
+    otherwise, and raise rather than fall back to the CPU when there is no
+    card."""
     from svgf_tpu_torch.scenes.cornell import cornell_box
 
     if torch.cuda.is_available():
         assert cornell_box().flatten().device.type == "cuda"
         assert pipeline.Renderer(cornell_box(), RenderConfig(width=8, height=8)).device.type == "cuda"
+        assert TemporalState.initial(4, 8).color.device.type == "cuda"
+        assert GBuffer.zeros(4, 8).depth.device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="cuda"):
         cornell_box().flatten()
     with pytest.raises(RuntimeError, match="cuda"):
         pipeline.Renderer(cornell_box(), RenderConfig(width=8, height=8))
+    with pytest.raises(RuntimeError, match="cuda"):
+        TemporalState.initial(4, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        GBuffer.zeros(4, 8)
+    assert TemporalState.initial(4, 8, device="cpu").gbuffer.depth.device.type == "cpu"
 
 
 def test_render_with_kernels_on_cpu_raises():

@@ -1,0 +1,158 @@
+"""What the H100 designs of K5 (csrc/intersect_dense.cu) and K3
+(csrc/atrous.cu) rest on, checked on the CPU; the kernels themselves run
+only on the card, where chip_smoke.py holds each against its plain
+version.
+
+K5 writes the whole Hit in-kernel: its packed soup record carries the
+winner's ids, and the wrapper recomputes t/u/v in torch only when autograd
+needs them. K3 filters a step of width s as s^2 step-1 filters, one on
+each lattice img[a::s, b::s], and launches one block per lattice tile.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from svgf_tpu_torch.config import SVGFConfig
+from svgf_tpu_torch.kernels.filter import ATROUS_ROWS_PER_THREAD, ATROUS_TILE, atrous_lattice_grid
+from svgf_tpu_torch.kernels.intersect import needs_recompute, packed_scene
+from svgf_tpu_torch.render.svgf import atrous_iteration
+from svgf_tpu_torch.render.types import GBuffer
+from svgf_tpu_torch.scenes.cornell import cornell_box
+
+SV = SVGFConfig()
+STEPS = (1, 2, 4, 8, 16)
+
+
+@pytest.fixture(scope="module")
+def cornell():
+    return cornell_box(aspect=1.0).flatten(device="cpu")
+
+
+def test_packed_record_carries_the_ids(cornell):
+    """K5 reads a winner's instance, prim and material from the spare
+    words of its packed record (v0.w, e1.w, e2.w); K6 reads the vertices
+    and the instance of the same record."""
+    tris, _ = packed_scene(cornell)
+    w = cornell.world_tris9
+    T = w.shape[1]
+    assert tris.shape == (T, 12) and tris.dtype == torch.float32 and tris.is_contiguous()
+    ids = tris.view(torch.int32)
+    assert torch.equal(ids[:, 3], cornell.world_tri_inst)
+    assert torch.equal(ids[:, 7], cornell.world_tri_prim)
+    assert torch.equal(ids[:, 11], cornell.world_tri_mat)
+    assert torch.equal(tris[:, 0:3], w[0:3].T)
+    assert torch.equal(tris[:, 4:7], (w[3:6] - w[0:3]).T)
+    assert torch.equal(tris[:, 8:11], (w[6:9] - w[0:3]).T)
+    # the ids vary over the real columns, so a swapped word would show
+    n = cornell.meta.n_world_tris
+    assert len(set(cornell.world_tri_prim[:n].tolist())) == n
+    assert len(set(cornell.world_tri_mat[:n].tolist())) > 1
+
+
+def test_recompute_only_when_autograd_needs_it(cornell):
+    ro, rd = torch.zeros((4, 3)), torch.ones((4, 3))
+    assert not needs_recompute(cornell, ro, rd)
+    for which in ("ro", "rd", "soup"):
+        grad = lambda name, t: t.clone().requires_grad_(True) if name == which else t
+        scene = dataclasses.replace(cornell, world_tris9=grad("soup", cornell.world_tris9))
+        args = (scene, grad("ro", ro), grad("rd", rd))
+        assert needs_recompute(*args), which
+        with torch.no_grad():
+            assert not needs_recompute(*args), which
+
+
+def _lattice_filter(img, gbuf, step, phi_normal):
+    """Step `step` of the a-trous filter as step^2 step-1 filters, one on
+    each lattice img[a::step, b::step], reassembled. phi_depth keeps the
+    step's clamp_min(depth_deriv, 1e-6) * step: the lattice's derivative
+    is that product, at least 1e-6, which the step-1 filter's clamp then
+    leaves as it is and its factor 1 does not round (scaling depth_deriv
+    before the clamp would differ below 1e-6)."""
+    out = torch.empty_like(img)
+    deriv = torch.clamp_min(gbuf.depth_deriv, 1e-6) * step
+    for a in range(min(step, img.shape[0])):
+        for b in range(min(step, img.shape[1])):
+            sub = lambda x: x[a::step, b::step].contiguous()
+            g = GBuffer(*(sub(x) for x in gbuf))._replace(depth_deriv=sub(deriv))
+            out[a::step, b::step] = atrous_iteration(sub(img), g, 1, SV.phi_colour, phi_normal)
+    return out
+
+
+def _frame(h, w, zero_rows=0, seed=0):
+    """A seeded image and G-buffer with background pixels, derivatives
+    below 1e-6, and `zero_rows` zero rows on top (a K9b band's halo
+    beyond the image)."""
+    rng = np.random.default_rng(seed)
+    n = rng.standard_normal((h, w, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    n[..., 2] = np.abs(n[..., 2]) + 2.0         # mostly facing one way: weights > 0
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    bg = rng.uniform(size=(h, w)) < 0.1
+    depth = np.where(bg, 0.0, rng.uniform(1, 3, (h, w)))
+    deriv = np.where(rng.uniform(size=(h, w)) < 0.2, rng.uniform(0, 2e-6, (h, w)),
+                     rng.uniform(1e-4, 1e-2, (h, w)))
+    img = rng.uniform(-0.1, 1.1, (h, w, 4))     # the kernel's load clamps
+    fields = dict(depth=depth, depth_deriv=deriv, normal=np.where(bg[..., None], 0.0, n))
+    if zero_rows:
+        img[:zero_rows] = 0.0
+        for v in fields.values():
+            v[:zero_rows] = 0.0
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32)
+    gbuf = GBuffer.zeros(h, w, device="cpu")._replace(**{k: t(v) for k, v in fields.items()})
+    return t(img), gbuf
+
+
+@pytest.mark.parametrize("step", STEPS)
+@pytest.mark.parametrize("frame", ["frame 37x53", "band with zero halo"])
+def test_atrous_step_is_one_filter_per_lattice(frame, step):
+    """The premise of K3's lattice design: a step of width s equals the
+    step-1 filters of its s^2 lattices. Every tap of a pixel lies on its
+    own lattice, an out-of-frame tap is out of the lattice, and each tap's
+    arithmetic sees the same operands in the same order, so the two are
+    bit-equal where torch's CPU arithmetic rounds alike in every lane: at
+    phi_normal = 2, which torch.pow computes as x * x. At the default 128,
+    torch.pow's vectorised body and its scalar loop over a tensor's tail
+    may differ by an ulp, and a pixel's lane differs between the frame and
+    its lattice: within 1e-6 there. (The kernel squares 7 times instead.)"""
+    if frame == "band with zero halo":   # 12 rows of a frame's top, halo 2 * step
+        img, gbuf = _frame(12 + 4 * step, 53, zero_rows=2 * step, seed=1)
+    else:
+        img, gbuf = _frame(37, 53)
+    for phi_normal, tol in ((2.0, 0.0), (SV.phi_normal, 1e-6)):
+        want = atrous_iteration(img, gbuf, step, SV.phi_colour, phi_normal)
+        got = _lattice_filter(img, gbuf, step, phi_normal)
+        assert float((got - want).abs().max()) <= tol, phi_normal
+
+
+def _covered(h, w, step):
+    """How many threads of the launch grid filter each pixel: the block ->
+    (residue, tile) and thread -> lattice point mapping of csrc/atrous.cu."""
+    blocks, res_w, tiles_x, n_res = atrous_lattice_grid(h, w, step)
+    ty, tx = ATROUS_TILE
+    rows = ATROUS_ROWS_PER_THREAD
+    k = np.arange(blocks)[:, None, None]
+    t = np.arange(ty * tx // rows)[None, :, None]
+    row = np.arange(rows)[None, None, :]
+    res, tile = k % n_res, k // n_res
+    a, b = res // res_w, res % res_w
+    h_lat, w_lat = (h - a + step - 1) // step, (w - b + step - 1) // step
+    li = tile // tiles_x * ty + t // tx + row * (ty // rows)
+    lj = tile % tiles_x * tx + t % tx
+    live = (li < h_lat) & (lj < w_lat)
+    r = np.broadcast_to(a + li * step, live.shape)[live]
+    c = np.broadcast_to(b + lj * step, live.shape)[live]
+    assert r.max() < h and c.max() < w
+    return np.bincount(r * w + c, minlength=h * w)
+
+
+@pytest.mark.parametrize("step", STEPS)
+def test_atrous_lattice_grid_covers_each_pixel_once(step):
+    """At 1080x1920, on K9b's bands (270 rows of a 4-band frame and the
+    1080 rows of a one-rank frame, each with 2 * step halo rows a side),
+    and on small frames narrower than the step."""
+    for h, w in ((1080, 1920), (270 + 4 * step, 1920), (1080 + 4 * step, 1920), (37, 53),
+                 (5, 3)):
+        assert (_covered(h, w, step) == 1).all(), (h, w)

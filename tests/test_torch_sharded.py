@@ -372,10 +372,10 @@ def test_sharded_step_rejects_bad_bands():
     # bands below BOUND_Y rows cannot carry K7's halo
     step = make_sharded_step(RenderConfig(width=8, height=4, state_dtype="float32"), mesh)
     with pytest.raises(ValueError, match="at least"):
-        step(arrays, TemporalState.initial(4, 8, torch.float32))
+        step(arrays, TemporalState.initial(4, 8, torch.float32, "cpu"))
     step = make_sharded_step(RenderConfig(width=8, height=16, state_dtype="float32"), mesh)
     with pytest.raises(ValueError, match="state band"):
-        step(arrays, TemporalState.initial(8, 8, torch.float32))
+        step(arrays, TemporalState.initial(8, 8, torch.float32, "cpu"))
     with pytest.raises(ValueError):  # "on" needs CUDA tensors
         make_sharded_step(RenderConfig(width=8, height=16, use_pallas="on"), mesh)(
-            arrays, TemporalState.initial(16, 8, torch.float32))
+            arrays, TemporalState.initial(16, 8, torch.float32, "cpu"))
