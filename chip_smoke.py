@@ -11,8 +11,9 @@ Phases, each failing loudly (no phase catches an exception):
      together, into one library (prints seconds and ptxas' register report);
   3. each filter kernel (K1-K4) against its plain torch version on the card
      at 1920x1080, on seeded inputs with disocclusions, background and large
-     motion; prints both times (CUDA events) and the errors, and K3's step
-     kernel alone at each of the chain's five widths;
+     motion; prints both times (CUDA events) and the errors, K3's step
+     kernel alone at each of the chain's five widths, and K2 again on an
+     input whose fallback pixels lie in disocclusion bands;
   4. the dense intersector kernel (K5) against its plain version on the
      1080p Cornell box: the primary rays and 2,073,600 seeded secondary rays
      from inside the box, plain and with an active mask, a per-ray tmax and
@@ -22,7 +23,13 @@ Phases, each failing loudly (no phase catches an exception):
   5. the scene-BVH intersector kernel (K6) against its plain walk on the
      104,884-triangle stress terrain: the 2,088,960 block-ordered 1080p
      primary rays and 65,536 scrambled rays (plain, and with an active mask
-     and tmax, and only_instance=1); prints Mrays/s and the node visits;
+     and tmax, and only_instance=1); on each case the Hit the kernel writes
+     against the torch recompute of its winner (bit for bit on every lane);
+     one call without grad is one device kernel; prints Mrays/s, the kernel
+     alone on both ray sets, and the visits a ray of the skip-link walk
+     and of the kernel's nearest-first walk (with a warp's most); its bound
+     is on its own records and tests, with the same formula on the
+     skip-link walk's counts beside it (`yardstick_bound_ms`);
   6. the main path: Renderer.step on the Cornell box at 1920x1080, 5 a-trous
      steps, fp16 state, for FRAMES frames with a small camera orbit, through
      the kernels; checks the launch counts per frame, that the image is finite
@@ -44,16 +51,28 @@ Phases, each failing loudly (no phase catches an exception):
      cuda:0, make_sharded_step for FRAMES Cornell 1080p frames as in phase
      6; checks the launches per frame (K7 1, K8 1, K9b 5, K10 1, and the
      intersector's), the image, and frame FRAMES against the unsharded
-     Renderer's; prints frame and stage milliseconds.
+     Renderer's; prints frame and stage milliseconds;
+ 10. K2's block gate and list against the same kernel without them, on
+     the test frame and on the inputs of Cornell frames 2-4 and 16 and
+     terrain frames 4 and 16: the fallback layout each sees, both kernels
+     alone, and their outputs bit for bit equal.
 Every kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its FP32 operations on these inputs over 67 TFLOP/s
 (the H100 SXM's published peaks at 700 W).
 The last lines are the nvidia-smi line, a JSON line of the kernels, and
 {"ok": true, "device": {...}}.
+
+`compare_times()` times the kernels a redesign should move with only the
+wrappers' public calls and the helpers the phases time them with
+(`time_call`, `timed_frames`), so that it can time an earlier checkout of the
+port too: from that checkout's root,
+    python3 -c "import importlib.util as u; s = u.spec_from_file_location('c', '<this file>'); \
+c = u.module_from_spec(s); s.loader.exec_module(c); c.compare_times()"
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -67,6 +86,8 @@ import torch
 H, W = 1080, 1920
 DEVICE = "cuda"
 FRAMES = 4
+# a frame of the steady state, where only disocclusions have history < 4
+LATER_FRAME = 16
 # 2 lane chunks: the 1080p frame's trace in two halves (PERF.md section 5).
 TRACE_CHUNKS = 2
 TIMED_ITERS = 20
@@ -83,7 +104,7 @@ OPS_MOMENTS_TAP = 46     # a tap (49) of a fallback pixel; pass-through pixels n
 OPS_ATROUS_TAP = 52      # a tap (24) of a valid-depth pixel, per step
 OPS_TAA = 400            # a pixel (9 PAL-YUV encodes, box clamp, decode, sRGB)
 OPS_MT = 55              # a ray-triangle test (Moller-Trumbore, verdict, best-so-far)
-OPS_SLAB = 28            # a scene-BVH node visit (slab test, verdict)
+OPS_SLAB = 28            # a scene-BVH box test (slab test, verdict); K6 makes two a record
 OPS_RECOMPUTE = 53       # a ray: the recompute of the winner's t/u/v
 # the profiled Cornell 1080p frame's device time (ms) and device kernels
 # when K5's wrapper still gathered and recomputed each Hit in torch
@@ -152,10 +173,11 @@ def cuda_ms(fn, iters: int = TIMED_ITERS, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled(fn, iters: int, cpu: bool = False):
+def profiled(fn, iters: int, cpu: bool = False, per_call: int | None = None):
     """fn() `iters` times under torch.profiler (the card, and the host if
     `cpu`); returns (the profiler, its device events, the svgf:: kernels it
-    saw, the launches the wrappers counted). The profiler now and then
+    saw, the launches the wrappers counted, or `per_call` a call of fn for
+    a launcher that no wrapper counts). The profiler now and then
     drops kernel records of a session, so a session that saw fewer svgf::
     kernels than were launched is run again, three times at most; the one
     that saw the most stands, and its shortfall is printed."""
@@ -172,7 +194,7 @@ def profiled(fn, iters: int, cpu: bool = False):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        launched = sum(LAUNCHES.values()) - before
+        launched = sum(LAUNCHES.values()) - before if per_call is None else per_call * iters
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         seen = sum("svgf::" in e.name for e in events)
         if best is None or seen > best[2]:
@@ -184,18 +206,24 @@ def profiled(fn, iters: int, cpu: bool = False):
     return best
 
 
-def kernel_alone_ms(fn, iters: int = TIMED_ITERS) -> float:
+def kernel_alone_ms(fn, iters: int = TIMED_ITERS, per_call: int | None = None) -> float:
     """Device milliseconds per fn() of the svgf:: kernels it launches, by
     torch.profiler: the kernels alone, without the wrapper's host time or
     the gaps between launches that it leaves. Where the profiler dropped
     records, the mean of the kernels it saw stands for the launches it
-    missed."""
+    missed. `per_call`: as for profiled."""
     fn()
     torch.cuda.synchronize()
-    _, events, seen, launched = profiled(fn, iters)
+    _, events, seen, launched = profiled(fn, iters, per_call=per_call)
     assert seen > 0, f"the profiler saw none of {launched} kernel launches"
     us = sum(e.time_range.elapsed_us() for e in events if "svgf::" in e.name)
     return us * launched / seen / 1e3 / iters
+
+
+def time_call(fn) -> dict:
+    """fn()'s mean ms through its wrapper (events) and its kernels alone
+    (profiler): the times that compare_times and the phases share."""
+    return {"ms": cuda_ms(fn), "alone_ms": kernel_alone_ms(fn)}
 
 
 def time_pair(name, kernel, plain, iters=TIMED_ITERS, plain_iters=TIMED_ITERS, plain_warmup=3):
@@ -319,14 +347,10 @@ def check_filter_kernels() -> dict:
     results["temporal"] = (err, b, lambda: K.temporal_filter(*t_args),
                            lambda: P.temporal_filter(*t_args))
 
-    m_args = (tp.color, tp.moments, gbuf, tp.history_len, sv.phi_colour, sv.phi_normal)
+    m_args = moments_cases(tp, gbuf)["scattered"]
     mp = P.filter_moments(*m_args)
-    err = assert_stage("moments", K.filter_moments(*m_args), mp)
-    fallback = int(((tp.history_len < 4) & (gbuf.depth != 0)).sum())
-    log(f"  moments: {fallback} fallback pixels ({100 * fallback / px:.2f}%)")
-    b = bound(nbytes(tp.color, tp.moments, gbuf.depth, gbuf.depth_deriv, gbuf.normal,
-                     tp.history_len, mp), fallback * 49 * OPS_MOMENTS_TAP)
-    results["moments"] = (err, b, lambda: K.filter_moments(*m_args),
+    err = check_moments("moments", K.filter_moments(*m_args), mp, tp.history_len, gbuf)
+    results["moments"] = (err, moments_bound(m_args, mp), lambda: K.filter_moments(*m_args),
                           lambda: P.filter_moments(*m_args))
 
     a_args = (mp, gbuf, sv.spatial_filter_steps, sv.phi_colour, sv.phi_normal)
@@ -353,7 +377,157 @@ def check_filter_kernels() -> dict:
         log(f"  {name}: bound {b['bound_ms']:.4f} ms by {b['bound_by']}; the kernel alone "
             f"(profiler) {kernel_alone_ms(kernel):.4f} ms")
     atrous_step_times(mp, gbuf)
+    timed["moments"]["banded"] = moments_banded_times(tp, gbuf)
     return timed
+
+
+def check_moments(label, got, want, history_len, gbuf) -> float:
+    """K2 or K8 against the plain filter_moments: the stage bars and a max
+    error of at most 1e-5 (the same arithmetic, expf ulps apart)."""
+    fallback = int(((history_len < 4) & (gbuf.depth != 0)).sum())
+    log(f"  {label}: {fallback} fallback pixels ({100 * fallback / history_len.numel():.2f}%)")
+    err = assert_stage(label, got, want)
+    assert err <= 1e-5, (label, err)
+    return err
+
+
+def moments_bound(m_args, out) -> dict:
+    color, moments, gbuf, history_len = m_args[:4]
+    fallback = int(((history_len < 4) & (gbuf.depth != 0)).sum())
+    return bound(nbytes(color, moments, gbuf.depth, gbuf.depth_deriv, gbuf.normal, history_len, out),
+                 fallback * 49 * OPS_MOMENTS_TAP)
+
+
+def moments_cases(tp, gbuf) -> dict:
+    """K2's arguments on the 1080p test frame after K1 (`tp`): its
+    scattered fallback pixels, and banded_history's disocclusion bands."""
+    from svgf_tpu_torch.config import SVGFConfig
+
+    sv = SVGFConfig(spatial_filter_steps=5)
+    return {name: (tp.color, tp.moments, gbuf, hist, sv.phi_colour, sv.phi_normal)
+            for name, hist in (("scattered", tp.history_len),
+                               ("banded", banded_history(tp.history_len)))}
+
+
+def banded_history(history_len):
+    """history_len with its fallback pixels (history < 4) in 25-pixel
+    disocclusion bands along slanted edges, as a moving object leaves them
+    in a real frame, instead of scattered pixel by pixel: history 1 in
+    the bands, at least 4 elsewhere. With frame_inputs' background about
+    as many fallback pixels as the scattered case."""
+    h, w = history_len.shape
+    r = torch.arange(h, device=history_len.device)[:, None]
+    c = torch.arange(w, device=history_len.device)[None, :]
+    band = (c + r // 3) % 128 < 25
+    return torch.where(band, torch.ones_like(history_len), torch.clamp_min(history_len, 4))
+
+
+def moments_banded_times(tp, gbuf) -> dict:
+    """K2 on the 1080p frame with banded fallback pixels (banded_history):
+    against its plain version, its time by events (wrapper included) and
+    alone, and its bound."""
+    from svgf_tpu_torch.kernels import filter as K
+    from svgf_tpu_torch.render import svgf as P
+
+    m_args = moments_cases(tp, gbuf)["banded"]
+    kernel, plain = lambda: K.filter_moments(*m_args), lambda: P.filter_moments(*m_args)
+    want = plain()
+    err = check_moments("moments, banded fallback", kernel(), want, m_args[3], gbuf)
+    b = moments_bound(m_args, want)
+    t = time_pair("moments, banded fallback", kernel, plain)
+    alone = kernel_alone_ms(kernel)
+    log(f"  moments, banded fallback: bound {b['bound_ms']:.4f} ms by {b['bound_by']}; the kernel "
+        f"alone (profiler) {alone:.4f} ms")
+    return {"max_abs_err": err, **t, "alone_ms": alone, "bound_ms": b["bound_ms"]}
+
+
+@contextlib.contextmanager
+def recording_moments(calls: list):
+    """While the block runs, each filter_moments call of the kernels route
+    also appends its (args, kwargs) to `calls`."""
+    from svgf_tpu_torch.kernels import filter as K
+
+    wrapper = K.filter_moments
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return wrapper(*args, **kw)
+
+    K.filter_moments = record
+    try:
+        yield
+    finally:
+        K.filter_moments = wrapper
+
+
+def frame_moments_inputs(label, scene, orbit, frames) -> dict:
+    """K2's inputs at each of `frames` (counted from 1) of one run of the
+    kernels route at 1080p from frame 0's camera: {"<label> frame <f>":
+    (args, kwargs)}."""
+    calls = []
+    with recording_moments(calls):
+        run_frames(scene, orbit, H, W, "on", TRACE_CHUNKS, frames=max(frames))
+    return {f"{label} frame {f}": calls[f - 1] for f in frames}
+
+
+def fallback_layout(history_len, depth) -> dict:
+    """What K2's gate and list see: the fallback share, the share of blocks
+    (32 x 16 tiles) that pass the gate, the pixels a passing block lists,
+    and the warp passes of 49 taps with the list (ceil(n / 32) a block)
+    and without it (each 32-pixel tile row that holds a fallback pixel)."""
+    from svgf_tpu_torch.kernels.filter import MOMENTS_TILE
+
+    ty, tx = MOMENTS_TILE
+    fb = (history_len < 4) & (depth != 0)
+    h, w = fb.shape
+    gy, gx = -(-h // ty), -(-w // tx)
+    grid = torch.zeros((gy * ty, gx * tx), dtype=torch.int32, device=fb.device)
+    grid[:h, :w] = fb.to(torch.int32)
+    rows = grid.view(gy, ty, gx, tx).sum(3)   # fallback pixels of each tile row
+    n = rows.sum(1)
+    passing = n > 0
+    return {"fallback_pct": 100 * float(fb.float().mean()),
+            "blocks_passing_pct": 100 * float(passing.float().mean()),
+            "listed_a_passing_block": float(n[passing].float().mean()) if bool(passing.any()) else 0.0,
+            "warp_passes_list": int(((n + 31) // 32).sum()),
+            "warp_passes_in_place": int((rows > 0).sum())}
+
+
+def moments_design_times(args, kw) -> dict:
+    """K2's kernel with its gate and list (compact, the wrappers' call) and
+    without them (in place), alone by the profiler, in turns: list, in
+    place, in place, list. The two must write the same bits."""
+    from svgf_tpu_torch.kernels import filter as K
+
+    with_list = lambda: K._launch_moments(*args, **kw, compact=True)
+    in_place = lambda: K._launch_moments(*args, **kw, compact=False)
+    assert torch.equal(with_list(), in_place()), "K2 with and without its list differ"
+    l1, p1, p2, l2 = (kernel_alone_ms(fn, per_call=1)
+                      for fn in (with_list, in_place, in_place, with_list))
+    return {"list_ms": (l1 + l2) / 2, "in_place_ms": (p1 + p2) / 2}
+
+
+def check_moments_designs(cases: dict) -> dict:
+    """K2's block gate and list against the same staged kernel without
+    them, on each case's inputs {label: (args, kwargs)}: the test frame's
+    scattered and banded fallback pixels, and the main path's own frames
+    (Cornell 2-4, its timed frames, where nearly every covered pixel still
+    has history < 4, and later frames, where only disocclusions do). Equal
+    bits from both hold the kernel's own list: a pixel listed twice or
+    not at all would differ."""
+    log(f"K2 with its block gate and list against in place (no gate, each thread its own "
+        f"pixels), the kernel alone (profiler), {W}x{H}:")
+    res = {}
+    for label, (args, kw) in cases.items():
+        lay = fallback_layout(args[3], args[2].depth)
+        t = moments_design_times(args, kw)
+        log(f"  {label}: {lay['fallback_pct']:.2f}% fallback, {lay['blocks_passing_pct']:.2f}% of "
+            f"blocks pass the gate listing {lay['listed_a_passing_block']:.1f} pixels each; warp "
+            f"passes of 49 taps {lay['warp_passes_list']} listed, {lay['warp_passes_in_place']} in "
+            f"place; list {t['list_ms']:.4f} ms, in place {t['in_place_ms']:.4f} ms "
+            f"({t['in_place_ms'] / t['list_ms']:.3f}x)")
+        res[label] = {**lay, **t}
+    return res
 
 
 def atrous_step_times(img, gbuf) -> dict:
@@ -460,7 +634,9 @@ def check_band_outputs(label, name, got, want) -> float:
     if name == "atrous_iteration":
         return max(assert_stage(f"{label} step {st}", g, w)
                    for st, g, w in zip(ATROUS_STEPS, got, want))
-    return assert_stage(label, got, want)
+    err = assert_stage(label, got, want)
+    assert name != "moments_band" or err <= 1e-5, (label, err)
+    return err
 
 
 def check_band_kernels() -> dict:
@@ -520,7 +696,7 @@ def check_band_kernels() -> dict:
     assert not bool(valid[~ib].any()) and bool((history[~ib] == 1).all()), "out of the bound"
     log(f"  temporal: {int((~ib).sum())} pixels beyond the bound, all disoccluded "
         f"({int((t_full.reprojected & ~ib).sum())} of them reprojected by K1's unbounded gather)")
-    assert_stage("moments", torch.cat(stitched["moments_band"]), m_full)
+    assert_stage("moments", torch.cat(stitched["moments_band"]), m_full, 0.0)  # zero rows add 0
     for k, st in enumerate(ATROUS_STEPS):   # a zero-halo tap adds exactly 0
         assert_stage(f"atrous step {st}", torch.cat([o[k] for o in stitched["atrous_iteration"]]),
                      steps_full[k], 0.0)
@@ -660,39 +836,84 @@ def check_dense_kernel() -> dict:
     return {"max_abs_err": max(errs), **t, **b, "library_ms": None, "alone_ms": alone}
 
 
-def check_clustered_kernel(scene) -> dict:
+def stress_arrays(scene):
+    """The stress scene flattened on the card, with its host seconds."""
+    t_host = time.perf_counter()
+    arrays = scene.flatten(device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"stress_scene(n={STRESS_N}): flatten (NumPy BVH build) {time.perf_counter() - t_host:.3f} s "
+        f"host; {arrays.meta.n_world_tris} world triangles, soup {tuple(arrays.world_tris9.shape)}, "
+        f"{arrays.wbvh_skip.shape[0]} scene-BVH nodes, {arrays.world_cluster_bounds.shape[0]} clusters")
+    assert arrays.meta.soup_leaf_order and arrays.meta.n_world_tris == 2 * (STRESS_N - 1) ** 2 + 2
+    return arrays
+
+
+def stress_rays(arrays):
+    """The 2,088,960 block-ordered 1080p primary rays (64x64 blocks) and
+    SCRAMBLED seeded rays from above the terrain: {name: (ro, rd)}."""
+    from svgf_tpu_torch.ops.geometry import normalize
+    from svgf_tpu_torch.render.gbuffer import camera_rays
+    from svgf_tpu_torch.render.pathtrace import make_block_order
+
+    fwd, _, _ = make_block_order(H, W)
+    ro_p, rd_p = camera_rays(arrays.cam_frame[0], arrays.cam_proj[0], H, W)
+    rng = np.random.default_rng(2)
+    ro_s = cuda(rng.uniform((-1.8, 0.6, -1.8), (1.8, 1.4, 1.8), (SCRAMBLED, 3)))
+    rd_s = normalize(cuda(rng.standard_normal((SCRAMBLED, 3))))
+    return {"primary": (fwd(ro_p), fwd(rd_p)), "scrambled": (ro_s, rd_s)}, rng
+
+
+def visit_counts(label, visits, tests) -> dict:
+    """Per-ray counts of a walk: the mean and max a ray, and the mean over
+    warps (32 consecutive rays) of the warp's most, which a warp waits for."""
+    v = visits.float()
+    pad = (-v.numel()) % 32
+    warp_max = torch.nn.functional.pad(v, (0, pad)).view(-1, 32).amax(1)
+    c = {"visits": float(v.mean()), "visits_max": int(visits.max()),
+         "warp_max_visits": float(warp_max.mean()), "tests": float(tests.float().mean())}
+    log(f"  {label}: visits a ray mean {c['visits']:.2f} max {c['visits_max']}, a warp's most "
+        f"{c['warp_max_visits']:.2f} on average ({c['warp_max_visits'] / c['visits']:.2f}x the "
+        f"mean); triangle tests a ray {c['tests']:.2f}")
+    return c
+
+
+def clustered_calls(arrays, rays) -> dict:
+    """K6's timed calls, the wrapper on each ray set: {name: fn}."""
+    from svgf_tpu_torch.kernels import intersect as KI
+
+    return {name: (lambda ro=ro, rd=rd: KI.intersect_clustered_kernel(arrays, ro, rd))
+            for name, (ro, rd) in rays.items()}
+
+
+def check_clustered_kernel(arrays, rays, rng) -> dict:
     """K6 against traverse_scene_bvh on the stress terrain. Bars
     (tests/test_clustered.py:92-96): hit/miss sets equal; relative dist
     error below 2e-3 everywhere and below 1e-5 on >= 99% of hits; and, as
     for K5, the winning triangle agrees on >= 99.99% of the lanes (both
-    walks compute t bit for bit alike, so only an exact tie may differ)."""
+    walks compute t bit for bit alike; their orders differ, so only an
+    exact tie may pick another winner). The kernel's Hit equals, on every
+    lane and bit for bit, the torch recompute of its winner; without grad
+    a call is one device kernel. Node visits of both walks: the skip-link
+    walk's (the plain walk's counts) and the kernel's child-pair records.
+    The bound is K6's own (its records and tests); the same formula on
+    the skip-link walk's counts, the yardstick the earlier design was
+    bound by, is kept beside it to read both designs against the same work."""
     from svgf_tpu_torch.kernels import intersect as KI
-    from svgf_tpu_torch.ops.geometry import normalize
-    from svgf_tpu_torch.ops.intersect import start_dist, traverse_scene_bvh
-    from svgf_tpu_torch.render.gbuffer import camera_rays
-    from svgf_tpu_torch.render.pathtrace import make_block_order
+    from svgf_tpu_torch.ops.intersect import (
+        _walk_scene_bvh, hit_from_winner, start_dist, traverse_scene_bvh,
+    )
 
-    t_host = time.perf_counter()
-    arrays = scene.flatten(device=DEVICE)
-    torch.cuda.synchronize()
-    log(f"K6 stress_scene(n={STRESS_N}): flatten (NumPy BVH build) {time.perf_counter() - t_host:.3f} s "
-        f"host; {arrays.meta.n_world_tris} world triangles, soup {tuple(arrays.world_tris9.shape)}, "
-        f"{arrays.wbvh_skip.shape[0]} scene-BVH nodes, {arrays.world_cluster_bounds.shape[0]} clusters")
-    assert arrays.meta.soup_leaf_order and arrays.meta.n_world_tris == 2 * (STRESS_N - 1) ** 2 + 2
-
-    fwd, _, lanes = make_block_order(H, W)
-    ro_p, rd_p = camera_rays(arrays.cam_frame[0], arrays.cam_proj[0], H, W)
-    ro_p, rd_p = fwd(ro_p), fwd(rd_p)
-    rng = np.random.default_rng(2)
-    n = SCRAMBLED
-    ro_s = cuda(rng.uniform((-1.8, 0.6, -1.8), (1.8, 1.4, 1.8), (n, 3)))
-    rd_s = normalize(cuda(rng.standard_normal((n, 3))))
+    ro_p, rd_p = rays["primary"]
+    ro_s, rd_s = rays["scrambled"]
+    n, lanes = ro_s.shape[0], ro_p.shape[0]
     active = cuda(rng.uniform(size=n) < 0.7, torch.bool)
     tmax = cuda(rng.uniform(0.5, 3.0, n))
     ro_up = cuda(np.stack([rng.uniform(-1.2, 1.2, n), np.full(n, 0.5), rng.uniform(-1.2, 1.2, n)], 1))
     rd_up = cuda(np.tile([[0.0, 1.0, 0.0]], (n, 1)))   # axis-aligned: 0 * inf in the slab test
-
-    log(f"K6 intersect_clustered vs plain walk, {lanes} primary rays, {n} scrambled:")
+    _, bvh = KI.packed_scene(arrays)
+    log(f"K6 intersect_clustered vs plain walk, {lanes} primary rays, {n} scrambled; the scene BVH "
+        f"repacked into {bvh.nodes.shape[0]} child-pair records, depth {bvh.depth} (stack "
+        f"{KI.BVH_STACK}):")
     cases = (
         ("primary (1080p, 64x64 blocks)", ro_p, rd_p, {}),
         ("scrambled", ro_s, rd_s, {}),
@@ -711,37 +932,64 @@ def check_clustered_kernel(scene) -> dict:
         if "only_instance" in kw:
             assert bool((got.instance[got.dist < t0] == 1).all()), label
         errs.append(st["max_abs_err"])
+        # the in-kernel Hit against the recompute of the same launch's winner
+        r = KI._rays(ro, rd, kw.get("active"), kw.get("tmax"))
+        hit, col, _ = KI.bvh_hit(arrays, *r, kw.get("only_instance"), with_col=True)
+        rec = hit_from_winner(arrays, ro, rd, col, t0, kw.get("active"))
+        differ = {f: int((getattr(hit, f) != getattr(rec, f)).sum()) for f in hit._fields}
+        log(f"  {label}: in-kernel Hit vs the recompute of its winner, lanes that differ: {differ}")
+        assert not any(differ.values()), (label, differ)
+        assert all(torch.equal(a, b) for a, b in zip(got, hit)), label
 
-    # node visits and triangle tests a ray, counted by the kernel itself
-    r = KI._rays(ro_p, rd_p, None, None)
-    _, _, st = KI.bvh_select(arrays, *r, stats=True)
-    visits, tests = st[:, 0].long(), st[:, 1].long()
-    log(f"  primary: node visits a ray mean {float(visits.float().mean()):.2f} max {int(visits.max())}, "
-        f"triangle tests mean {float(tests.float().mean()):.2f} max {int(tests.max())}")
+    names, launched = device_kernels(lambda: KI.intersect_clustered_kernel(arrays, ro_s, rd_s))
+    log(f"  10 calls without grad: {launched} launches of K6; the profiler saw {len(names)} "
+        f"device kernels: {sorted(set(names))}")
+    assert launched == 10 and names and all("svgf::intersect_bvh" in x for x in names), names
 
-    kernel = lambda: KI.intersect_clustered_kernel(arrays, ro_p, rd_p)
+    counts = {}
+    for name, (ro, rd) in rays.items():
+        t0 = start_dist(None, ro.shape[0], ro.device)
+        _, _, sv, stt = _walk_scene_bvh(arrays, ro, rd, t0, None, None, counts=True)
+        _, _, st = KI.bvh_hit(arrays, *KI._rays(ro, rd, None, None), stats=True)
+        counts[name] = {"skip_link": visit_counts(f"{name}, skip-link walk (nodes)", sv, stt),
+                        "child_pair": visit_counts(f"{name}, K6 (child-pair records)",
+                                                   st[:, 0], st[:, 1])}
+
+    calls = clustered_calls(arrays, rays)
+    kernel = calls["primary"]
     plain = lambda: traverse_scene_bvh(arrays, ro_p, rd_p)
-    t = time_pair("primary (wrapper: walk + recompute)", kernel, plain, plain_iters=2, plain_warmup=1)
-    select = cuda_ms(lambda: KI.bvh_select(arrays, *r))
-    rs = KI._rays(ro_s, rd_s, None, None)
-    scr = cuda_ms(lambda: KI.intersect_clustered_kernel(arrays, ro_s, rd_s))
-    scr_select = cuda_ms(lambda: KI.bvh_select(arrays, *rs))
-    _, _, sst = KI.bvh_select(arrays, *rs, stats=True)
-    log(f"  primary: {lanes / (t['ms'] * 1e3):.1f} Mrays/s through the wrapper, walk kernel alone "
-        f"{select:.4f} ms ({lanes / (select * 1e3):.1f} Mrays/s)")
-    log(f"  scrambled: {scr:.4f} ms, {n / (scr * 1e3):.1f} Mrays/s through the wrapper, walk "
-        f"kernel alone {scr_select:.4f} ms ({n / (scr_select * 1e3):.1f} Mrays/s); node visits a "
-        f"ray mean {float(sst[:, 0].float().mean()):.2f} max {int(sst[:, 0].max())}, triangle "
-        f"tests mean {float(sst[:, 1].float().mean()):.2f}")
+    t = time_pair("primary (wrapper: one launch writes the Hit)", kernel, plain, plain_iters=2,
+                  plain_warmup=1)
+    alone = kernel_alone_ms(kernel)
+    scr = time_call(calls["scrambled"])
+    scr_ms, scr_alone = scr["ms"], scr["alone_ms"]
+    log(f"  primary: {lanes / (t['ms'] * 1e3):.1f} Mrays/s through the wrapper, the kernel alone "
+        f"(profiler) {alone:.4f} ms ({lanes / (alone * 1e3):.1f} Mrays/s)")
+    log(f"  scrambled: {scr_ms:.4f} ms, {n / (scr_ms * 1e3):.1f} Mrays/s through the wrapper, the "
+        f"kernel alone (profiler) {scr_alone:.4f} ms ({n / (scr_alone * 1e3):.1f} Mrays/s)")
     out = kernel()
+    ray_bytes = nbytes(ro_p, rd_p, *out)
     scene_bytes = nbytes(arrays.wbvh_bounds6, arrays.wbvh_skip, arrays.wbvh_leaf_tri,
                          arrays.world_tris9, arrays.world_tri_inst, arrays.world_tri_prim,
                          arrays.world_tri_mat)
-    b = bound(nbytes(ro_p, rd_p, *out) + scene_bytes,
-              int(visits.sum()) * OPS_SLAB + int(tests.sum()) * OPS_MT + lanes * OPS_RECOMPUTE)
-    log(f"  bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bound_bytes']} B, {b['bound_ops']} ops)")
+    # K6's bound on its own work: its child-pair records (two box tests
+    # each) and triangle tests, its records and soup read once
+    cp = counts["primary"]["child_pair"]
+    b = bound(ray_bytes + nbytes(bvh.nodes, KI.packed_scene(arrays)[0]),
+              lanes * (cp["visits"] * 2 * OPS_SLAB + cp["tests"] * OPS_MT + OPS_RECOMPUTE))
+    # the yardstick: the same formula on the skip-link walk's counts and
+    # the scene-BVH arrays it reads (the skip-link design's own bound)
+    sk = counts["primary"]["skip_link"]
+    yard = bound(ray_bytes + scene_bytes,
+                 lanes * (sk["visits"] * OPS_SLAB + sk["tests"] * OPS_MT + OPS_RECOMPUTE))
+    log(f"  bound {b['bound_ms']:.4f} ms by {b['bound_by']} on K6's own counts (two boxes a "
+        f"record; {b['bound_bytes']} B, {b['bound_ops']} ops); the yardstick on the skip-link "
+        f"walk's counts {yard['bound_ms']:.4f} ms by {yard['bound_by']} ({yard['bound_bytes']} B, "
+        f"{yard['bound_ops']} ops)")
     # no single PyTorch call computes a nearest ray-triangle hit
-    return {"max_abs_err": max(errs), **t, **b, "library_ms": None, "select_ms": select}
+    return {"max_abs_err": max(errs), **t, **b, "library_ms": None, "alone_ms": alone,
+            "yardstick_bound_ms": yard["bound_ms"], "yardstick_bound_by": yard["bound_by"],
+            "scrambled_ms": scr_ms, "scrambled_alone_ms": scr_alone, "counts": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -772,8 +1020,8 @@ def profile_step(label, renderer, frame_ms: float) -> tuple[float, int]:
     return busy, len(kernels)
 
 
-def run_frames(scene, orbit, h, w, use_pallas: str, chunks: int):
-    """FRAMES frames through Renderer.step, the camera set by orbit(f)
+def run_frames(scene, orbit, h, w, use_pallas: str, chunks: int, frames: int = FRAMES):
+    """`frames` frames through Renderer.step, the camera set by orbit(f)
     (None keeps it) before frame f. Returns (last FrameOutputs, per-frame
     stage milliseconds, the Renderer)."""
     from svgf_tpu_torch.config import RenderConfig, SVGFConfig
@@ -787,7 +1035,7 @@ def run_frames(scene, orbit, h, w, use_pallas: str, chunks: int):
     r = Renderer(scene, cfg, device=DEVICE)
     stages = []
     out = None
-    for f in range(FRAMES):
+    for f in range(frames):
         if orbit(f) is not None:
             r.update_camera(orbit(f))
         events = {}
@@ -852,18 +1100,45 @@ def log_stages(label, stages):
     log(f"{label} frame ms, every frame: {[round(s['frame'], 3) for s in stages]}")
 
 
-def check_main_path() -> dict:
+def cornell_orbit(f: int):
+    """The Cornell camera before frame f: 0.01 rad a frame round the box (None keeps frame 0's)."""
     from svgf_tpu_torch.core.camera import orbit_frame
-    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
-    from svgf_tpu_torch.scenes.cornell import cornell_box
 
-    scene = cornell_box(aspect=W / H)
-    orbit = lambda f: orbit_frame([0.0, 0.0, 0.0], 3.4, theta=0.01 * f, phi=0.0) if f else None
+    return orbit_frame([0.0, 0.0, 0.0], 3.4, theta=0.01 * f, phi=0.0) if f else None
+
+
+def stress_orbit(f: int):
+    """The stress camera's azimuth, 3.0 from the centre at 0.6 rad
+    elevation (62% of the view is terrain), moving 0.01 rad a frame like
+    the main path."""
+    from svgf_tpu_torch.core.camera import orbit_frame
+
+    return orbit_frame([0.0, 0.0, 0.0], 3.0, theta=math.pi / 4 + 0.01 * f, phi=0.6)
+
+
+def timed_frames(label, scene, orbit) -> tuple:
+    """FRAMES 1080p frames of the kernels route, the launch counts set to 0
+    just before them and read just after, then one more frame under the
+    profiler. Returns (the last FrameOutputs, per-frame stage ms, the
+    launches, {frame_ms, moments_ms: medians of frames 2-FRAMES;
+    device_ms, device_kernels: the profiled frame})."""
+    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
+
     reset_launches()
     out, stages, r = run_frames(scene, orbit, H, W, "on", TRACE_CHUNKS)
     launches = dict(LAUNCHES)
-    busy, n_kernels = profile_step("Cornell 1080p kernels", r,
-                                   statistics.median(s["frame"] for s in stages[1:]))
+    med = {k: statistics.median(st[k] for st in stages[1:]) for k in stages[0]}
+    busy, kernels = profile_step(f"{label} 1080p kernels", r, med["frame"])
+    return out, stages, launches, {"frame_ms": med["frame"], "moments_ms": med["moments"],
+                                   "device_ms": busy, "device_kernels": kernels}
+
+
+def check_main_path() -> dict:
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    scene = cornell_box(aspect=W / H)
+    out, stages, launches, summary = timed_frames("Cornell", scene, cornell_orbit)
+    busy, n_kernels = summary["device_ms"], summary["device_kernels"]
     before_ms, before_n = CORNELL_FRAME_BEFORE
     log(f"Cornell 1080p profiled frame against the frame before K5 wrote its Hit (PERF.md "
         f"section 5: {before_ms} ms in {before_n} device kernels): {busy - before_ms:+.3f} ms, "
@@ -873,7 +1148,7 @@ def check_main_path() -> dict:
     assert launches == expect, (launches, expect)
     check_image(out, H, W, "Cornell")
 
-    plain_out, plain_stages, _ = run_frames(scene, orbit, H, W, "off", TRACE_CHUNKS)
+    plain_out, plain_stages, _ = run_frames(scene, cornell_orbit, H, W, "off", TRACE_CHUNKS)
     compare_frames("Cornell 1080p", out, plain_out)
     log_stages("Cornell kernels", stages)
     log_stages("Cornell plain", plain_stages)
@@ -896,7 +1171,6 @@ def check_sharded_route() -> dict:
     import torch.distributed as dist
 
     from svgf_tpu_torch.config import RenderConfig, SVGFConfig
-    from svgf_tpu_torch.core.camera import orbit_frame
     from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
     from svgf_tpu_torch.parallel import init_distributed, make_row_mesh, make_sharded_step
     from svgf_tpu_torch.render.pipeline import Renderer
@@ -915,7 +1189,7 @@ def check_sharded_route() -> dict:
         cfg = RenderConfig(width=W, height=H, svgf=SVGFConfig(spatial_filter_steps=5),
                            state_dtype="float16", keep_taps=True, use_pallas="on",
                            trace_chunks=TRACE_CHUNKS)
-        orbit = lambda f: orbit_frame([0.0, 0.0, 0.0], 3.4, theta=0.01 * f, phi=0.0) if f else None
+        orbit = cornell_orbit
         step = make_sharded_step(cfg, mesh)
         holder = Renderer(cornell_box(aspect=W / H), cfg, device=device)   # scene and camera
         state = TemporalState.initial(H // mesh.size, W, torch.float16, device)
@@ -968,18 +1242,9 @@ def check_sharded_route() -> dict:
 
 
 def check_stress_path(scene) -> dict:
-    from svgf_tpu_torch.core.camera import orbit_frame
-    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
-
-    # the stress camera's azimuth, 3.0 from the centre at 0.6 rad elevation
-    # (62% of the view is terrain), moving 0.01 rad a frame like the main path
-    orbit = lambda f: orbit_frame([0.0, 0.0, 0.0], 3.0, theta=math.pi / 4 + 0.01 * f, phi=0.6)
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    out, stages, r = run_frames(scene, orbit, H, W, "on", TRACE_CHUNKS)
-    launches = dict(LAUNCHES)
+    out, stages, launches, _ = timed_frames("stress", scene, stress_orbit)
     peak = torch.cuda.max_memory_allocated() / 2**20
-    profile_step("stress 1080p kernels", r, statistics.median(s["frame"] for s in stages[1:]))
     log(f"stress path (terrain 1080p, trace_chunks={TRACE_CHUNKS}) launches over {FRAMES} frames: "
         f"{launches}; peak memory {peak:.1f} MiB")
     expect = expected_launches("intersect_clustered", TRACE_CHUNKS)
@@ -988,12 +1253,78 @@ def check_stress_path(scene) -> dict:
     log_stages("stress kernels", stages)
 
     # kernels against plain at 480x270: the plain walk is a host loop
-    small, _, _ = run_frames(scene, orbit, SMALL_H, SMALL_W, "on", 1)
-    small_plain, small_plain_stages, _ = run_frames(scene, orbit, SMALL_H, SMALL_W, "off", 1)
+    small, _, _ = run_frames(scene, stress_orbit, SMALL_H, SMALL_W, "on", 1)
+    small_plain, small_plain_stages, _ = run_frames(scene, stress_orbit, SMALL_H, SMALL_W, "off", 1)
     check_image(small, SMALL_H, SMALL_W, "stress 480x270")
     compare_frames("stress 480x270", small, small_plain)
     log_stages("stress 480x270 plain", small_plain_stages)
     return launches
+
+
+def compare_times() -> dict:
+    """The times the redesigns of K2/K8 and K6 should move, measured on the
+    tree of the port that is imported, with only the wrappers' public
+    calls, so that the same function times an earlier tree too (run it
+    from each checkout in turn, in one chip call): K2 on frame_inputs'
+    scattered and banded fallback pixels, K8 on the 1080-row and the
+    [0, 270) band, K6 on the primary and the scrambled rays (wrapper by
+    events, kernel alone by the profiler), the profiled terrain and Cornell
+    frames' device time and kernels, and the Cornell frame's moments
+    stage. Prints them as one JSON line "compare: {...}"."""
+    import svgf_tpu_torch
+    from svgf_tpu_torch.config import SVGFConfig
+    from svgf_tpu_torch.kernels import filter as K
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+    from svgf_tpu_torch.scenes.stress import stress_scene
+
+    smi = check_card()
+    build_kernels()
+    log(f"compare_times on {svgf_tpu_torch.__file__}")
+    sv = SVGFConfig(spatial_filter_steps=5)
+    res = {}
+
+    radiance, gbuf, state = frame_inputs()
+    tp = K.temporal_filter(radiance, state.color, gbuf, state.gbuffer, state.moments,
+                           state.history_len, sv.depth_threshold, sv.normal_threshold,
+                           sv.history_length)
+    for name, m_args in moments_cases(tp, gbuf).items():
+        res[f"K2 {name}"] = time_call(lambda: K.filter_moments(*m_args))
+    m_full = K.filter_moments(*moments_cases(tp, gbuf)["scattered"])
+    a_full = K.wavelet_filter(m_full, gbuf, 5, sv.phi_colour, sv.phi_normal)[0]
+    for r0, r1 in ((0, H), (0, H // NBANDS)):
+        calls = band_calls(radiance, gbuf, state, tp, m_full, a_full, r0, r1)
+        res[f"K8 [{r0}, {r1})"] = time_call(calls["moments_band"][0])
+
+    stress = stress_scene(n=STRESS_N, aspect=W / H)
+    arrays = stress_arrays(stress)
+    for name, fn in clustered_calls(arrays, stress_rays(arrays)[0]).items():
+        res[f"K6 {name}"] = time_call(fn)
+    for name, scene, orbit in (("terrain", stress, stress_orbit),
+                               ("Cornell", cornell_box(aspect=W / H), cornell_orbit)):
+        res[f"{name} frame"] = timed_frames(name, scene, orbit)[3]
+    log(smi)
+    log("compare: " + json.dumps(res))
+    return res
+
+
+def moments_design_cases(stress) -> dict:
+    """K2's inputs for check_moments_designs: the test frame's scattered
+    and banded cases, Cornell frames 2, 3, 4 (the main path's timed
+    frames) and LATER_FRAME, and terrain frames 4 and LATER_FRAME."""
+    from svgf_tpu_torch.config import SVGFConfig
+    from svgf_tpu_torch.kernels import filter as K
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    sv = SVGFConfig(spatial_filter_steps=5)
+    radiance, gbuf, state = frame_inputs()
+    tp = K.temporal_filter(radiance, state.color, gbuf, state.gbuffer, state.moments,
+                           state.history_len, sv.depth_threshold, sv.normal_threshold,
+                           sv.history_length)
+    cases = {f"test frame, {name}": (args, {}) for name, args in moments_cases(tp, gbuf).items()}
+    cases.update(frame_moments_inputs("Cornell", cornell_box(aspect=W / H), cornell_orbit,
+                                      (2, 3, 4, LATER_FRAME)))
+    cases.update(frame_moments_inputs("terrain", stress, stress_orbit, (4, LATER_FRAME)))
+    return cases
 
 
 def main() -> int:
@@ -1009,7 +1340,8 @@ def main() -> int:
     from svgf_tpu_torch.scenes.stress import stress_scene
 
     stress = stress_scene(n=STRESS_N, aspect=W / H)
-    timed["intersect_clustered"] = check_clustered_kernel(stress)
+    arrays = stress_arrays(stress)
+    timed["intersect_clustered"] = check_clustered_kernel(arrays, *stress_rays(arrays))
     launches = check_main_path()
     # K9a is K3's chain (one function in the port's one layout): its row is K3's call
     timed["atrous_chain"], launches["atrous_chain"] = timed["atrous"], launches["atrous"]
@@ -1018,11 +1350,14 @@ def main() -> int:
         launches[name] = sharded_launches[name]
     stress_launches = check_stress_path(stress)
     launches["intersect_clustered"] = stress_launches["intersect_clustered"]
+    check_moments_designs(moments_design_cases(stress))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # K6 also carries the yardstick bound that its earlier design was read against
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **{k: timed[name][k] for k in keys}}
+         "launches": launches[name], **{k: timed[name][k] for k in keys},
+         **{k: timed[name][k] for k in ("yardstick_bound_ms", "yardstick_bound_by") if k in timed[name]}}
         for name, src, rep in KERNELS
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels

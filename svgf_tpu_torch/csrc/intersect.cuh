@@ -1,7 +1,8 @@
 // Shared device code of the two intersector kernels (intersect_dense.cu,
 // intersect_clustered.cu).
 //
-// Both read the world triangle soup packed once per scene by the wrapper
+// Both write the Hit record through HitOut (below) and read the world
+// triangle soup packed once per scene by the wrapper
 // (svgf_tpu_torch/kernels/intersect.py packed_scene) as three float4 a
 // column:
 //   (v0.x, v0.y, v0.z, instance id bits), (e1, prim id bits), (e2, material id bits)
@@ -68,6 +69,41 @@ __device__ __forceinline__ float mt_hit(float3 o, float3 d, float3 v0, float3 e1
 
 __device__ __forceinline__ float3 load3(const float* __restrict__ p, long i) {
   return make_float3(p[3 * i], p[3 * i + 1], p[3 * i + 2]);
+}
+
+// The Hit record's six fields, (R,) each, and the winning column (-1 for
+// none), which only a caller that recomputes t/u/v asks for (else null).
+struct HitOut {
+  float *dist, *u, *v;
+  int *prim, *inst, *mat, *col;
+};
+
+__device__ __forceinline__ void write_hit(const HitOut& out, int i, float dist, float u, float v,
+                                          int prim, int inst, int mat, int col) {
+  out.dist[i] = dist;
+  out.u[i] = u;
+  out.v[i] = v;
+  out.prim[i] = prim;
+  out.inst[i] = inst;
+  out.mat[i] = mat;
+  if (out.col) out.col[i] = col;
+}
+
+// The Hit of a ray's search as ops/intersect.py hit_from_winner builds it:
+// the winner's t (== best), its u, v from one more Moller-Trumbore test
+// with the same arithmetic (bit for bit the torch recompute's) and its ids
+// from the packed record; without a winner, dist = the start distance,
+// u = v = 0 and ids 0.
+__device__ __forceinline__ void write_winner(const HitOut& out, int i, const float4* __restrict__ tris,
+                                             float3 o, float3 d, float best, float start,
+                                             int col) {
+  if (col < 0) {
+    write_hit(out, i, start, 0.f, 0.f, 0, 0, 0, -1);
+    return;
+  }
+  const Tri w = load_tri(tris, col);
+  const Crossing c = mt_test(o, d, w.v0, w.e1, w.e2);  // c.t == best
+  write_hit(out, i, best, c.u, c.v, w.prim, w.inst, w.mat, col);
 }
 
 }  // namespace svgf

@@ -44,22 +44,6 @@ constexpr int kDenseThreads = 256;
 constexpr int kWarps = kDenseThreads / 32;
 constexpr int kTile = 512;  // triangles per shared-memory tile: 512 x 37 B
 
-struct HitOut {
-  float *dist, *u, *v;
-  int *prim, *inst, *mat, *col;  // col may be null
-};
-
-__device__ __forceinline__ void write_hit(const HitOut& out, int i, float dist, float u, float v,
-                                          int prim, int inst, int mat, int col) {
-  out.dist[i] = dist;
-  out.u[i] = u;
-  out.v[i] = v;
-  out.prim[i] = prim;
-  out.inst[i] = inst;
-  out.mat[i] = mat;
-  if (out.col) out.col[i] = col;
-}
-
 __global__ void __launch_bounds__(kDenseThreads)
 intersect_dense_kernel(const float4* __restrict__ tris, int c0, int c1, int only_instance,
                        const float* __restrict__ ro, const float* __restrict__ rd,
@@ -116,14 +100,7 @@ intersect_dense_kernel(const float4* __restrict__ tris, int c0, int c1, int only
       }
     }
   }
-  if (!mine) return;
-  if (col < 0) {
-    write_hit(out, ray, start, 0.f, 0.f, 0, 0, 0, -1);
-    return;
-  }
-  const Tri w = load_tri(tris, col);
-  const Crossing c = mt_test(o, d, w.v0, w.e1, w.e2);  // c.t == best
-  write_hit(out, ray, best, c.u, c.v, w.prim, w.inst, w.mat, col);
+  if (mine) write_winner(out, ray, tris, o, d, best, start, col);
 }
 
 }  // namespace svgf

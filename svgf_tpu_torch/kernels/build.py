@@ -36,12 +36,12 @@ SIGNATURES = {
     "svgf_temporal_f16": [_P] * 15 + [_I, _I, _F, _F, _I, _P],
     "svgf_temporal_band_f32": [_P] * 15 + [_I, _I, _F, _F, _I] + [_I] * 6 + [_P],
     "svgf_temporal_band_f16": [_P] * 15 + [_I, _I, _F, _F, _I] + [_I] * 6 + [_P],
-    "svgf_moments": [_P] * 7 + [_I, _I, _F, _F, _I, _P],
+    "svgf_moments": [_P] * 7 + [_I, _I, _F, _F, _I, _I, _P],
     "svgf_atrous_step": [_P] * 5 + [_I, _I, _I, _F, _F, _I] + [_I] * 4 + [_P],
     "svgf_taa_f32": [_P] * 3 + [_I, _I, _P],
     "svgf_taa_f16": [_P] * 3 + [_I, _I, _P],
     "svgf_intersect_dense": [_P] * 12 + [_I, _I, _I, _I, _P],
-    "svgf_intersect_bvh": [_P] * 9 + [_I, _I, _I, _P],
+    "svgf_intersect_bvh": [_P] * 14 + [_I, _I, _P],
 }
 
 

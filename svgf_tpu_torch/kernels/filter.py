@@ -151,17 +151,32 @@ def temporal_filter_band(current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer,
     return out
 
 
+# pixels (rows, columns) a block of csrc/moments.cu takes (kTileMY,
+# kBlockX): 256 threads, tile rows ty and ty + 8 in the lanes of warp ty
+MOMENTS_TILE = (16, 32)
+
+
+def _check_aligned(t: torch.Tensor, name: str, nbytes: int) -> None:
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: not aligned to {nbytes} bytes")
+
+
 def _launch_moments(color, moments, gbuf: GBuffer, history_len, phi_colour: float,
-                    phi_normal: float):
+                    phi_normal: float, compact: bool = True):
+    """K2's kernel; compact=False skips the block gate and the list (each
+    thread filters its own pixels in place), which chip_smoke.py times
+    against the wrappers' compact=True."""
     h, w = color.shape[:2]
     check(color, "color", (h, w, 4), (torch.float32,))
     check(moments, "moments", (h, w, 2), (torch.float32,))
     check(history_len, "history_len", (h, w), (torch.int32,))
     _check_gbuffer(gbuf, h, w, ("depth", "depth_deriv", "normal"))
+    _check_aligned(color, "color", 16)   # the kernel reads a pixel as one float4
+    _check_aligned(moments, "moments", 8)
     out = torch.empty((h, w, 4), dtype=torch.float32, device=color.device)
     launch(library().svgf_moments, color.device, *map(ptr, (
         color, moments, gbuf.depth, gbuf.depth_deriv, gbuf.normal, history_len, out)),
-        h, w, phi_colour, phi_normal, _normal_squarings(phi_normal))
+        h, w, phi_colour, phi_normal, _normal_squarings(phi_normal), int(compact))
     return out
 
 
@@ -169,10 +184,11 @@ def filter_moments(color, moments, gbuf: GBuffer, history_len, phi_colour: float
                    phi_normal: float):
     """K2 (csrc/moments.cu); plain version svgf.filter_moments.
 
-    Replaces svgf_tpu/kernels/planar.py moments_planar. Memory-bound for
-    the pass-through pixels (24 B read, 16 B written); a history < 4 pixel
-    reads 49 taps of 40 B, shared with its neighbours through L1/L2; one
-    thread per pixel, out-of-image taps skipped."""
+    Replaces svgf_tpu/kernels/planar.py moments_planar. Memory-bound: 24
+    B read and 16 B written a pixel, a history < 4 pixel's neighbourhood
+    besides. A block with no fallback pixel copies colour through; the
+    others stage their tile and its 3-pixel halo in shared memory and
+    filter their fallback pixels compacted into full warps."""
     if on_cpu(color, moments, history_len, gbuf.depth, gbuf.depth_deriv, gbuf.normal):
         return svgf.filter_moments(color, moments, gbuf, history_len, phi_colour, phi_normal)
     out = _launch_moments(color, moments, gbuf, history_len, phi_colour, phi_normal)

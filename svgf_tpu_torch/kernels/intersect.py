@@ -8,22 +8,22 @@
 Each takes the arguments of its plain version (ops/intersect.py
 intersect_dense, traverse_scene_bvh) and returns a Hit. Given CPU tensors
 it runs the plain version; given CUDA tensors it launches its kernel on
-the current stream, or raises; it never falls back. The dense kernel
-writes the whole Hit in its one launch. When autograd needs t/u/v as
-functions of the ray or the soup (`needs_recompute`), it also writes the
-winning soup column, and `hit_from_winner` gathers the winner and
-recomputes t/u/v in torch, as svgf_tpu's wrapper does to keep them
-differentiable. The scene-BVH kernel chooses the column only, and
-`hit_from_winner` builds its Hit.
+the current stream, or raises; it never falls back. Each kernel writes the
+whole Hit in its one launch. When autograd needs t/u/v as functions of the
+ray or the soup (`needs_recompute`), it also writes the winning soup
+column, and `hit_from_winner` gathers the winner and recomputes t/u/v in
+torch, as svgf_tpu's wrapper does to keep them differentiable.
 
-The kernels read the soup (and the scene BVH's nodes) packed once per
-scene into 16-byte records (`packed_scene`), kept on the device for the
-last few scenes packed; an entry holds its source tensors too.
+The kernels read the soup packed once per scene into 16-byte records, and
+K6 the scene BVH repacked once into child-pair records (`packed_scene`),
+kept on the device for the last few scenes packed; an entry holds its
+source tensors too.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -45,12 +45,62 @@ def _sources(scene):
             scene.wbvh_bounds6, scene.wbvh_skip, scene.wbvh_leaf_tri)
 
 
+# entries of csrc/intersect_clustered.cu's per-thread stack (kStack): the
+# deepest scene BVH K6 walks
+BVH_STACK = 64
+
+
+class ChildPairBVH(NamedTuple):
+    """The scene BVH as K6 walks it. nodes (M + 1, 16) f32: per internal
+    node of the skip-linked tree (M of them, in its order) one record
+    [lo0.xyz, ref0 | hi0.xyz, ref1 | lo1.xyz, 0 | hi1.xyz, 0] of its two
+    children's boxes and references (a record index >= 1, or ~column for
+    a leaf's soup column); record 0 holds the root as its first child and
+    an empty NaN box, which no ray hits, as its second. depth: internal
+    nodes on the longest root-to-leaf path, the most entries the walk's
+    stack can hold."""
+
+    nodes: torch.Tensor
+    depth: int
+
+
+def child_pair_bvh(scene) -> ChildPairBVH:
+    """Repack the skip-linked scene BVH (`wbvh_*`: DFS order, a node's
+    left child at i + 1, its right child at the left child's skip link)
+    into child-pair records; see ChildPairBVH."""
+    skip, leaf, b6 = scene.wbvh_skip.long(), scene.wbvh_leaf_tri.long(), scene.wbvh_bounds6
+    n, dev = skip.shape[0], skip.device
+    inner = torch.nonzero(leaf < 0).flatten()           # internal nodes, the root first
+    left = inner + 1
+    # children after their parent: a walk's record index only grows as it descends
+    if bool((left >= n).any()) or bool((skip[left] >= n).any()) or bool((skip[left] <= left).any()):
+        raise ValueError("the scene BVH is not a binary tree of one-triangle leaves")
+    right = skip[left]
+    rec = torch.zeros((n,), dtype=torch.long, device=dev)
+    rec[inner] = torch.arange(1, inner.numel() + 1, device=dev)
+    ref = torch.where(leaf >= 0, ~leaf, rec)            # each node as a child
+    root = torch.zeros((1,), dtype=torch.long, device=dev)
+    c0, c1 = torch.cat([root, left]), torch.cat([root, right])
+    box1 = b6[:, c1].clone()
+    box1[:, 0] = float("nan")                           # record 0's empty child
+    bits = lambda r: r.to(torch.int32).view(torch.float32)[None]
+    zero = torch.zeros((1, c0.numel()), device=dev)
+    nodes = torch.cat([b6[0:3, c0], bits(ref[c0]), b6[3:6, c0], bits(ref[c1]),
+                       box1[0:3], zero, box1[3:6], zero]).T.contiguous()
+    depth, frontier = 0, inner[:1]
+    while frontier.numel():
+        depth += 1
+        kids = torch.cat([frontier + 1, skip[frontier + 1]])
+        frontier = kids[leaf[kids] < 0]
+    return ChildPairBVH(nodes, depth)
+
+
 def packed_scene(scene):
-    """(tris (T, 12) f32, nodes (N, 8) f32) on the scene's device.
+    """(tris (T, 12) f32, the ChildPairBVH or None without a scene BVH) on
+    the scene's device.
 
     tris: per soup column [v0.xyz, instance id bits | e1.xyz, prim id bits |
-    e2.xyz, material id bits] with e1 = v1 - v0, e2 = v2 - v0. nodes: per scene-BVH node
-    [lo.xyz, skip bits | hi.xyz, leaf column bits]."""
+    e2.xyz, material id bits] with e1 = v1 - v0, e2 = v2 - v0."""
     src = _sources(scene)
     key = tuple(id(t) for t in src)
     versions = tuple(t._version for t in src)
@@ -61,12 +111,10 @@ def packed_scene(scene):
         bits = lambda ids: ids.view(torch.float32)[None]
         tris = torch.cat([v0, bits(scene.world_tri_inst), w[3:6] - v0, bits(scene.world_tri_prim),
                           w[6:9] - v0, bits(scene.world_tri_mat)]).T.contiguous()
-        b6 = scene.wbvh_bounds6
-        nodes = torch.cat([b6[0:3], scene.wbvh_skip.view(torch.float32)[None],
-                           b6[3:6], scene.wbvh_leaf_tri.view(torch.float32)[None]]).T.contiguous()
+        bvh = child_pair_bvh(scene) if scene.meta.has_scene_bvh else None
         if len(_PACKED) >= _PACKED_MAX:
             _PACKED.clear()
-        entry = _PACKED[key] = (src, versions, tris, nodes)
+        entry = _PACKED[key] = (src, versions, tris, bvh)
     return entry[2], entry[3]
 
 
@@ -100,20 +148,47 @@ def _columns(scene, only_instance):
     return start, start + count, int(only_instance)
 
 
+def _empty_hit(R: int, dev, with_col: bool):
+    """Uninitialised outputs of a kernel: the Hit, and the winning column
+    when `with_col`."""
+    f32 = lambda: torch.empty((R,), dtype=torch.float32, device=dev)
+    i32 = lambda: torch.empty((R,), dtype=torch.int32, device=dev)
+    hit = Hit(dist=f32(), u=f32(), v=f32(), prim=i32(), instance=i32(), material=i32())
+    return hit, i32() if with_col else None
+
+
 def dense_hit(scene, ro, rd, t0, act, only_instance=None, with_col: bool = False):
     """Launch K5 on prepared rays (`_rays`); returns (the Hit, the winning
     column (R,) i32 with -1 for none, or None unless `with_col`)."""
     tris, _ = packed_scene(scene)
     R, dev = ro.shape[0], ro.device
-    f32 = lambda: torch.empty((R,), dtype=torch.float32, device=dev)
-    i32 = lambda: torch.empty((R,), dtype=torch.int32, device=dev)
-    hit = Hit(dist=f32(), u=f32(), v=f32(), prim=i32(), instance=i32(), material=i32())
-    col = i32() if with_col else None
+    hit, col = _empty_hit(R, dev, with_col)
     launch(library().svgf_intersect_dense, dev, ptr(tris), ptr(ro), ptr(rd),
            *map(_ptr_or_null, (t0, act)), *map(ptr, hit), _ptr_or_null(col),
            *_columns(scene, only_instance), R)
     LAUNCHES["intersect_dense"] += 1
     return hit, col
+
+
+def bvh_hit(scene, ro, rd, t0, act, only_instance=None, with_col: bool = False,
+            stats: bool = False):
+    """Launch K6 on prepared rays (`_rays`); returns (the Hit, the winning
+    column as dense_hit's, per-ray [records visited, triangles tested]
+    (R, 2) i32 or None unless `stats`). Raises for a scene without a scene
+    BVH or with one deeper than the kernel's stack."""
+    tris, bvh = packed_scene(scene)
+    if bvh is None:
+        raise ValueError("the scene has no scene BVH: K6 takes scenes over DENSE_MAX_TRIS")
+    if bvh.depth > BVH_STACK:
+        raise ValueError(f"scene BVH depth {bvh.depth} exceeds K6's stack of {BVH_STACK}")
+    R, dev = ro.shape[0], ro.device
+    hit, col = _empty_hit(R, dev, with_col)
+    st = torch.empty((R, 2), dtype=torch.int32, device=dev) if stats else None
+    launch(library().svgf_intersect_bvh, dev, ptr(bvh.nodes), ptr(tris), ptr(ro), ptr(rd),
+           *map(_ptr_or_null, (t0, act)), *map(ptr, hit), *map(_ptr_or_null, (col, st)),
+           -1 if only_instance is None else int(only_instance), R)
+    LAUNCHES["intersect_clustered"] += 1
+    return hit, col, st
 
 
 def needs_recompute(scene, ro, rd) -> bool:
@@ -125,22 +200,14 @@ def needs_recompute(scene, ro, rd) -> bool:
         t.requires_grad for t in (ro, rd, scene.world_tris9))
 
 
-def bvh_select(scene, ro, rd, t0, act, only_instance=None, stats: bool = False):
-    """Launch K6 on prepared rays (`_rays`); returns (best t, column,
-    per-ray [nodes visited, triangles tested] (R, 2) i32 or None)."""
-    tris, nodes = packed_scene(scene)
-    R = ro.shape[0]
-    t0 = start_dist(None, R, ro.device) if t0 is None else t0
-    act = torch.ones((R,), dtype=torch.bool, device=ro.device) if act is None else act
-    out_t = torch.empty((R,), dtype=torch.float32, device=ro.device)
-    out_col = torch.empty((R,), dtype=torch.int32, device=ro.device)
-    st = torch.empty((R, 2), dtype=torch.int32, device=ro.device) if stats else None
-    launch(library().svgf_intersect_bvh, ro.device,
-           *map(ptr, (nodes, tris, ro, rd, t0, act, out_t, out_col)),
-           _ptr_or_null(st),
-           nodes.shape[0], -1 if only_instance is None else int(only_instance), R)
-    LAUNCHES["intersect_clustered"] += 1
-    return out_t, out_col, st
+def _kernel_hit(select, scene, ro, rd, active, tmax, only_instance) -> Hit:
+    """The Hit through `select` (dense_hit or bvh_hit): the kernel's own,
+    or with `needs_recompute` the torch recompute of its winner."""
+    r = _rays(ro, rd, active, tmax)
+    if not needs_recompute(scene, ro, rd):
+        return select(scene, *r, only_instance)[0]
+    col = select(scene, *r, only_instance, with_col=True)[1]
+    return hit_from_winner(scene, ro, rd, col, start_dist(tmax, ro.shape[0], ro.device), active)
 
 
 def _scene_tensors(scene):
@@ -162,11 +229,7 @@ def intersect_dense_kernel(scene, ro, rd, active=None, tmax=None, only_instance=
     if on_cpu(ro, rd, *extra, *_scene_tensors(scene)):
         return intersect_dense(scene, ro, rd, active=active, tmax=tmax,
                                only_instance=only_instance)
-    r = _rays(ro, rd, active, tmax)
-    if not needs_recompute(scene, ro, rd):
-        return dense_hit(scene, *r, only_instance)[0]
-    _, col = dense_hit(scene, *r, only_instance, with_col=True)
-    return hit_from_winner(scene, ro, rd, col, start_dist(tmax, ro.shape[0], ro.device), active)
+    return _kernel_hit(dense_hit, scene, ro, rd, active, tmax, only_instance)
 
 
 def intersect_clustered_kernel(scene, ro, rd, active=None, tmax=None, only_instance=None):
@@ -174,12 +237,13 @@ def intersect_clustered_kernel(scene, ro, rd, active=None, tmax=None, only_insta
     ops.intersect.traverse_scene_bvh.
 
     Replaces svgf_tpu/kernels/intersect_pallas.py intersect_clustered_pallas.
-    One thread per ray walks the skip-linked scene BVH (`wbvh_*`), which
-    stays in L2; the node visits per ray bound it."""
+    One thread per ray walks the scene BVH nearest child first over its
+    child-pair records (`packed_scene`), which stay in L2, and writes the
+    Hit; its visits per ray bound it. A ray without a hit reports ids 0.
+    One launch a call; with `needs_recompute`, the same launch and the
+    torch recompute of t/u/v from its winner."""
     extra = () if active is None else (active,)
     if on_cpu(ro, rd, *extra, *_scene_tensors(scene), scene.wbvh_bounds6):
         return traverse_scene_bvh(scene, ro, rd, active=active, tmax=tmax,
                                   only_instance=only_instance)
-    r = _rays(ro, rd, active, tmax)
-    _, col, _ = bvh_select(scene, *r, only_instance)
-    return hit_from_winner(scene, ro, rd, col, start_dist(tmax, ro.shape[0], ro.device), active)
+    return _kernel_hit(bvh_hit, scene, ro, rd, active, tmax, only_instance)

@@ -91,8 +91,9 @@ _WALK_CHECK_EVERY = 16
 
 
 @torch.no_grad()
-def _walk_scene_bvh(scene, ro, rd, t0, active, only_instance):
-    """The skip-link walk; returns (best t, winning soup column or -1)."""
+def _walk_scene_bvh(scene, ro, rd, t0, active, only_instance, counts: bool = False):
+    """The skip-link walk; returns (best t, winning soup column or -1),
+    and with `counts` also each lane's node visits and triangle tests."""
     N = scene.wbvh_skip.shape[0]
     dev = ro.device
     roc, rdc = _components(ro), _components(rd)
@@ -103,6 +104,8 @@ def _walk_scene_bvh(scene, ro, rd, t0, active, only_instance):
     col = torch.full_like(node, -1)
     skip = scene.wbvh_skip.long()
     leaf = scene.wbvh_leaf_tri.long()
+    visits = torch.zeros_like(node) if counts else None
+    tests = torch.zeros_like(node) if counts else None
     step = 0
     while step % _WALK_CHECK_EVERY or bool((node < N).any()):
         step += 1
@@ -118,14 +121,18 @@ def _walk_scene_bvh(scene, ro, rd, t0, active, only_instance):
         t, _, _, m = ray_triangle_comp(
             roc, rdc, (v[0], v[1], v[2]), (v[3], v[4], v[5]), (v[6], v[7], v[8])
         )
+        tested = box_hit & is_leaf
         if only_instance is not None:
-            m = m & (scene.world_tri_inst[tri] == only_instance)
-        closer = box_hit & is_leaf & m & (t < tb)
+            tested = tested & (scene.world_tri_inst[tri] == only_instance)
+        if counts:
+            visits += live
+            tests += tested
+        closer = tested & m & (t < tb)
         tb = torch.where(closer, t, tb)
         col = torch.where(closer, tri, col)
         nxt = torch.where(box_hit & ~is_leaf, node + 1, skip[g])
         node = torch.where(live, nxt, node)
-    return tb, col
+    return (tb, col, visits, tests) if counts else (tb, col)
 
 
 def traverse_scene_bvh(scene, ro, rd, active=None, tmax=None, only_instance=None) -> Hit:

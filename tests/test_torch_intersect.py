@@ -14,6 +14,13 @@ interpret mode and a float64 brute force, with the bars of
 tests/test_clustered.py. A ray through an edge shared by two triangles
 may pick either one under another rounding, so winners are judged against
 float64 truth where the two float32 paths differ.
+
+K6's H100 design (csrc/intersect_clustered.cu) rests on a repack of the
+scene BVH into child-pair records and on a nearest-first walk over them
+finding the skip-link walk's hits; both are checked here on the stress
+scene, the walk through a plain torch model of the kernel's. Both
+kernels' wrappers take the kernel's Hit unless autograd needs the torch
+recompute of its winner.
 """
 
 import dataclasses
@@ -34,9 +41,11 @@ from svgf_tpu.scenes import cornell_box as j_cornell
 from svgf_tpu.scenes.stress import stress_scene as j_stress
 from svgf_tpu_torch import convert
 from svgf_tpu_torch.core.scene import SceneArrays, SceneMeta
-from svgf_tpu_torch.ops.geometry import MAX_LENGTH, ray_triangle_comp
+from svgf_tpu_torch.kernels import intersect as KI
+from svgf_tpu_torch.ops.geometry import MAX_LENGTH, ray_aabb_comp, ray_triangle_comp
 from svgf_tpu_torch.ops.intersect import (
-    hit_from_winner, intersect_dense, intersect_scene, start_dist, traverse_scene_bvh,
+    _walk_scene_bvh, hit_from_winner, intersect_dense, intersect_scene, start_dist,
+    traverse_scene_bvh,
 )
 from svgf_tpu_torch.scenes.stress import stress_scene
 
@@ -372,3 +381,169 @@ def test_large_intersect_only_instance_tmax_active(stress, stress_rays):
     finally:
         set_pallas_mode("auto")
     np.testing.assert_allclose(_np(h_only.dist), np.asarray(j_only.dist), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K6's H100 design: the child-pair repack and the nearest-first walk
+# ---------------------------------------------------------------------------
+
+
+def test_child_pair_repack_of_the_scene_bvh(stress):
+    """Record k >= 1 of the repack is internal node inner[k - 1] of the
+    skip-linked tree: its children are the nodes i + 1 and skip[i + 1]
+    with their boxes; record 0 holds the root beside an empty NaN box.
+    Every real soup column is reached exactly once, every record but 0
+    once, and the repack's depth is the skip-link tree's (the internal
+    nodes on its longest root-to-leaf path, counted from the nodes'
+    [i, skip[i]) subtree ranges)."""
+    _, ta = stress
+    bvh = KI.child_pair_bvh(ta)
+    skip, leaf, b6 = ta.wbvh_skip.long(), ta.wbvh_leaf_tri.long(), ta.wbvh_bounds6
+    N, T = skip.shape[0], ta.world_tris9.shape[1]
+    inner = torch.nonzero(leaf < 0).flatten()
+    M = inner.numel()
+    nodes = bvh.nodes
+    assert nodes.shape == (M + 1, 16) and nodes.is_contiguous()
+    refs = nodes.view(torch.int32)[:, [3, 7]].long()
+    node_of_col = torch.full((T,), -1, dtype=torch.long)
+    node_of_col[leaf[leaf >= 0]] = torch.nonzero(leaf >= 0).flatten()
+    child_node = lambda r: torch.where(r >= 0, inner[torch.clamp(r - 1, 0)],
+                                       node_of_col[torch.clamp(~r, 0)])
+    c0, c1 = child_node(refs[1:, 0]), child_node(refs[1:, 1])
+    assert torch.equal(c0, inner + 1) and torch.equal(c1, skip[inner + 1])
+    assert int(child_node(refs[:1, 0])) == 0
+    for k, c in ((0, torch.cat([c0.new_zeros(1), c0])), (8, c1)):
+        rows = nodes[:, k:k + 8] if k == 0 else nodes[1:, k:k + 8]
+        assert torch.equal(rows[:, 0:3], b6[0:3, c].T) and torch.equal(rows[:, 4:7], b6[3:6, c].T)
+    assert bool(nodes[0, 8:11].isnan().all()) and bool(nodes[0, 12:15].isnan().all())
+
+    slots = torch.cat([refs[:1, 0], refs[1:].flatten()])
+    cols = torch.bincount(~slots[slots < 0], minlength=T)
+    assert torch.equal(cols, (ta.world_tri_inst >= 0).long())
+    assert torch.equal(torch.bincount(slots[slots >= 0], minlength=M + 1)[1:], torch.ones(M).long())
+
+    ranges = torch.zeros(N + 1, dtype=torch.long)
+    ranges.index_add_(0, inner, torch.ones_like(inner))
+    ranges.index_add_(0, skip[inner], -torch.ones_like(inner))
+    assert bvh.depth == int(torch.cumsum(ranges, 0)[:N].max())
+    assert 0 < bvh.depth <= KI.BVH_STACK
+
+
+def _nearest_first_walk(bvh, ta, ro, rd, t0, active=None):
+    """A plain torch model of K6's walk over the child-pair records: both
+    children of a record tested against the best so far (ray_aabb_comp),
+    the nearer one hit visited next and the other pushed with its entry
+    distance, a leaf's triangle tested where the walk reaches it, and a
+    popped entry skipped once the best is below it; on equal t the lower
+    column. Returns (best t, winning column or -1, records visited)."""
+    R = ro.shape[0]
+    refs = bvh.nodes.view(torch.int32).long()
+    roc, rdc = tuple(ro.unbind(1)), tuple(rd.unbind(1))
+    inv = tuple(1.0 / d for d in rdc)
+    lanes = torch.arange(R)
+    best, col = t0.clone(), torch.full((R,), -1, dtype=torch.long)
+    stack_ref = torch.zeros((R, bvh.depth + 1), dtype=torch.long)
+    stack_t = torch.zeros((R, bvh.depth + 1))
+    sp = torch.zeros((R,), dtype=torch.long)
+    node = torch.zeros((R,), dtype=torch.long)
+    live = torch.ones((R,), dtype=torch.bool) if active is None else active.clone()
+    visits = live.long()
+    while bool(live.any()):
+        rec = bvh.nodes[node]
+        box = lambda k: ray_aabb_comp(roc, inv, tuple(rec[:, k:k + 3].unbind(1)),
+                                      tuple(rec[:, k + 4:k + 7].unbind(1)), best)
+        tn0, tn1 = box(0), box(8)
+        h0, h1 = live & (tn0 < MAX_LENGTH), live & (tn1 < MAX_LENGTH)
+        swap = h1 & (~h0 | (tn1 < tn0))
+        ref0, ref1 = refs[node, 3], refs[node, 7]
+        push = h0 & h1
+        stack_ref[lanes, sp] = torch.where(push, torch.where(swap, ref0, ref1), stack_ref[lanes, sp])
+        stack_t[lanes, sp] = torch.where(push, torch.where(swap, tn0, tn1), stack_t[lanes, sp])
+        sp = sp + push
+        nxt = torch.where(swap, ref1, ref0)
+        have = h0 | h1
+        while True:
+            pop = live & ~have & (sp > 0)
+            leaf = have & (nxt < 0)
+            if not bool(pop.any() | leaf.any()):
+                break
+            sp = sp - pop.long()
+            top = torch.clamp(sp, 0)
+            take = pop & (stack_t[lanes, top] < best)
+            nxt = torch.where(take, stack_ref[lanes, top], nxt)
+            have = have | take
+            c = torch.clamp(~nxt, 0)
+            v = ta.world_tris9[:, c]
+            t, _, _, m = ray_triangle_comp(roc, rdc, (v[0], v[1], v[2]), (v[3], v[4], v[5]),
+                                           (v[6], v[7], v[8]))
+            t = torch.where(m, t, MAX_LENGTH)
+            win = leaf & ((t < best) | ((t == best) & (col >= 0) & (c < col)))
+            best, col = torch.where(win, t, best), torch.where(win, c, col)
+            have = have & ~leaf
+        live = live & have
+        node = torch.where(live, nxt, node)
+        visits = visits + live
+    return best, col, visits
+
+
+@pytest.mark.parametrize("rays", ["camera", "scrambled", "scrambled, active + tmax"])
+def test_nearest_first_walk_finds_the_skip_link_walks_hits(stress, stress_rays, rays):
+    """The premise of K6's walk order: over the child-pair records, nearest
+    child first, it finds the hits of the skip-link walk
+    (traverse_scene_bvh's): the same hit/miss sets, and the same winner
+    except where two triangles tie at exactly the same t."""
+    _, ta = stress
+    ro, rd = (_t(x) for x in stress_rays["camera" if rays == "camera" else "scrambled"])
+    R = ro.shape[0]
+    rng = np.random.default_rng(7)
+    active = tmax = None
+    if rays.endswith("tmax"):
+        active = _t(rng.uniform(size=R) < 0.7)
+        tmax = _t(rng.uniform(0.5, 3.0, R).astype(np.float32))
+    t0 = start_dist(tmax, R, "cpu")
+    want_t, want_col = _walk_scene_bvh(ta, ro, rd, t0, active, None)
+    got_t, got_col, visits = _nearest_first_walk(KI.child_pair_bvh(ta), ta, ro, rd, t0, active)
+    assert bool((want_col >= 0).any())
+    assert torch.equal(got_col >= 0, want_col >= 0)
+    differ = got_col != want_col
+    assert torch.equal(got_t[differ], want_t[differ])
+    assert float(differ.float().mean()) <= 1e-2
+    assert torch.equal(got_t, want_t)
+    assert int(visits.max()) > 0
+
+
+@pytest.mark.parametrize("which", ["dense", "clustered"])
+def test_wrapper_recomputes_only_when_autograd_needs_it(monkeypatch, cornell, stress, stress_rays,
+                                                        which):
+    """Both kernels' wrappers on CUDA tensors: without grad the kernel's
+    own Hit, from one launch that writes no winning column; with a ray
+    requiring grad the same launch writing the column, and the torch
+    recompute of t/u/v from it (hit_from_winner), which keeps the graph.
+    The launch is modelled on the CPU by the plain choice of its winner."""
+    ta = cornell[1] if which == "dense" else stress[1]
+    ro, rd = (_t(x) for x in (_cornell_rays(cornell[0], "random", n=16) if which == "dense"
+                              else stress_rays["camera"]))
+    calls = []
+
+    def launch(scene, ro_, rd_, t0, act, only_instance=None, with_col=False):
+        assert not ro_.requires_grad and t0 is None and act is None
+        t0 = start_dist(None, ro_.shape[0], "cpu")
+        col = (_dense_winner(scene, ro_, rd_, t0) if which == "dense"
+               else _walk_scene_bvh(scene, ro_, rd_, t0, None, None)[1].to(torch.int32))
+        calls.append(with_col)
+        hit = hit_from_winner(scene, ro_, rd_, col, t0)
+        return (hit, col if with_col else None) + ((None,) if which == "clustered" else ())
+
+    monkeypatch.setattr(KI, "dense_hit" if which == "dense" else "bvh_hit", launch)
+    monkeypatch.setattr(KI, "on_cpu", lambda *tensors: False)
+    wrapper = KI.intersect_dense_kernel if which == "dense" else KI.intersect_clustered_kernel
+    h = wrapper(ta, ro, rd)
+    assert calls == [False] and not h.dist.requires_grad and bool((h.dist < 1e29).any())
+    g = ro.clone().requires_grad_(True)
+    hg = wrapper(ta, g, rd)
+    assert calls == [False, True] and hg.dist.requires_grad and hg.u.requires_grad
+    for a, b in zip(h, hg):
+        assert torch.equal(a, b.detach())
+    with torch.no_grad():
+        wrapper(ta, g, rd)
+    assert calls == [False, True, False]

@@ -1,12 +1,15 @@
-"""What the H100 designs of K5 (csrc/intersect_dense.cu) and K3
-(csrc/atrous.cu) rest on, checked on the CPU; the kernels themselves run
-only on the card, where chip_smoke.py holds each against its plain
-version.
+"""What the H100 designs of K5 (csrc/intersect_dense.cu), K3
+(csrc/atrous.cu) and K2 (csrc/moments.cu) rest on, checked on the CPU;
+the kernels themselves run only on the card, where chip_smoke.py holds
+each against its plain version. (K6's premises are checked in
+tests/test_torch_intersect.py, beside its stress scene.)
 
 K5 writes the whole Hit in-kernel: its packed soup record carries the
 winner's ids, and the wrapper recomputes t/u/v in torch only when autograd
 needs them. K3 filters a step of width s as s^2 step-1 filters, one on
-each lattice img[a::s, b::s], and launches one block per lattice tile.
+each lattice img[a::s, b::s], and launches one block per lattice tile. K2
+gates each block on its fallback pixels and compacts them into a list
+that its first threads filter.
 """
 
 import dataclasses
@@ -16,7 +19,9 @@ import pytest
 import torch
 
 from svgf_tpu_torch.config import SVGFConfig
-from svgf_tpu_torch.kernels.filter import ATROUS_ROWS_PER_THREAD, ATROUS_TILE, atrous_lattice_grid
+from svgf_tpu_torch.kernels.filter import (
+    ATROUS_ROWS_PER_THREAD, ATROUS_TILE, MOMENTS_TILE, atrous_lattice_grid,
+)
 from svgf_tpu_torch.kernels.intersect import needs_recompute, packed_scene
 from svgf_tpu_torch.render.svgf import atrous_iteration
 from svgf_tpu_torch.render.types import GBuffer
@@ -156,3 +161,76 @@ def test_atrous_lattice_grid_covers_each_pixel_once(step):
     for h, w in ((1080, 1920), (270 + 4 * step, 1920), (1080 + 4 * step, 1920), (37, 53),
                  (5, 3)):
         assert (_covered(h, w, step) == 1).all(), (h, w)
+
+
+def moments_fallback_lists(fallback: np.ndarray) -> np.ndarray:
+    """K2's block gate and compaction, the index arithmetic of
+    csrc/moments.cu copied to NumPy, on an (h, w) mask of the fallback
+    pixels (history < 4 and a valid depth). Returns, per block in launch
+    order (rows of blocks, then columns), its list: the pixels that its
+    threads 0, 1, ... (and again from thread 0 past the 256th) filter, as
+    flat indices r * w + c, -1 past the block's count. A pixel's slot is
+    the count of fallback pixels in the tile's earlier rows plus the
+    fallback lanes below its own in its row (one ballot and popc a row of
+    32). A block whose list is all -1 is gated: it only copies colour
+    through. This checks the arithmetic, not the kernel: the kernel's own
+    list is checked on the card, where chip_smoke.py holds its output bit
+    for bit to the same kernel run without the list."""
+    ty, tx = MOMENTS_TILE
+    h, w = fallback.shape
+    gy, gx = -(-h // ty), -(-w // tx)
+    grid = np.zeros((gy * ty, gx * tx), dtype=bool)
+    grid[:h, :w] = fallback
+    # tile pixel t = row * tx + column, in ballots of 32 (a tile row)
+    blocks = grid.reshape(gy, ty, gx, tx).transpose(0, 2, 1, 3).reshape(gy * gx, -1, 32)
+    lanes_below = np.cumsum(blocks, axis=-1) - blocks
+    count = blocks.sum(-1)
+    slot = (np.cumsum(count, axis=-1) - count)[..., None] + lanes_below
+    b, row, lane = np.nonzero(blocks)
+    t = row * 32 + lane
+    lists = np.full((gy * gx, ty * tx), -1, dtype=np.int64)
+    lists[b, slot[b, row, lane]] = ((b // gx) * ty + t // tx) * w + (b % gx) * tx + t % tx
+    return lists
+
+
+def _fallback_mask(h, w, layout, seed=0):
+    """History < 4 and a valid depth: 15.7% of the pixels, scattered one
+    by one (chip_smoke.py frame_inputs), or in 20-pixel disocclusion bands
+    along slanted edges, with background holes."""
+    rng = np.random.default_rng(seed)
+    if layout == "scattered":
+        mask = rng.uniform(size=(h, w)) < 0.157
+    else:
+        r, c = np.mgrid[0:h, 0:w]
+        mask = (c + r // 3) % 128 < 20
+    return mask & (rng.uniform(size=(h, w)) >= 0.2)
+
+
+@pytest.mark.parametrize("layout", ["scattered", "bands"])
+@pytest.mark.parametrize("h,w", [(1080, 1920), (276, 1920), (37, 53)])
+def test_moments_blocks_list_each_fallback_pixel_once(h, w, layout):
+    """K2's block gate and compaction (moments_fallback_lists, a copy of
+    the kernel's index arithmetic): on the 1080p frame, on K8's 276-row band
+    (270 rows and a 3-row halo a side) and on a frame narrower than a
+    tile, the listed pixels are exactly the fallback pixels, each once;
+    each block lists its own pixels in pixel order from slot 0 without a
+    gap; and a block is gated (lists none) exactly when its tile holds no
+    fallback pixel."""
+    mask = _fallback_mask(h, w, layout)
+    lists = moments_fallback_lists(mask)
+    ty, tx = MOMENTS_TILE
+    gy, gx = -(-h // ty), -(-w // tx)
+    assert lists.shape == (gy * gx, ty * tx)
+    listed = lists[lists >= 0]
+    assert np.array_equal(np.sort(listed), np.flatnonzero(mask))
+    n = (lists >= 0).sum(1)
+    assert ((lists >= 0) == (np.arange(ty * tx)[None] < n[:, None])).all()
+    b = np.repeat(np.arange(gy * gx), n)
+    assert ((listed // w) // ty * gx + (listed % w) // tx == b).all()
+    assert (np.diff(listed)[np.diff(b) == 0] > 0).all()
+    grid = np.zeros((gy * ty, gx * tx), dtype=bool)
+    grid[:h, :w] = mask
+    has = grid.reshape(gy, ty, gx, tx).any(axis=(1, 3)).flatten()
+    assert np.array_equal(n > 0, has)
+    if layout == "bands" and h > 100:   # the banded frame gates whole blocks
+        assert 0.2 < float(has.mean()) < 0.9
