@@ -13,7 +13,10 @@ Phases, each failing loudly (no phase catches an exception):
      at 1920x1080, on seeded inputs with disocclusions, background and large
      motion; prints both times (CUDA events) and the errors, K3's step
      kernel alone at each of the chain's five widths, and K2 again on an
-     input whose fallback pixels lie in disocclusion bands;
+     input whose fallback pixels lie in disocclusion bands; K1 and K4 again
+     with bf16 and fp32 state, and K4 bit for bit with each history type on
+     colour and history with NaN and out-of-range pixels; K4 with each
+     history type through its wrapper and alone;
   4. the dense intersector kernel (K5) against its plain version on the
      1080p Cornell box: the primary rays and 2,073,600 seeded secondary rays
      from inside the box, plain and with an active mask, a per-ray tmax and
@@ -37,7 +40,9 @@ Phases, each failing loudly (no phase catches an exception):
      through the plain versions; prints frame and per-stage milliseconds and
      rays traced, and profiles one more frame (the device's busy share and
      the operations with the most device time, and its device time and
-     kernel count against the frame's before K5 wrote its Hit);
+     kernel count against the frame's before K5 wrote its Hit); then the
+     same frames with bfloat16 state, with the same launch counts, against
+     the plain route's;
   7. the stress path: the same on the stress terrain at 1920x1080 through
      the kernels (K1-K4, K6), and kernels against plain at 480x270;
   8. the band kernels of the row-sharded route (K7-K10) at 1080p: the frame
@@ -45,17 +50,28 @@ Phases, each failing loudly (no phase catches an exception):
      tensors as its neighbours would send them (zero rows, or edge rows for
      TAA, beyond the image); each kernel against its plain version on every
      band and on the one 1080-row band of a one-rank route, the stitched
-     bands against the whole-frame K1, K2, K3-step and K4 outputs; times of
-     each band and of the whole-frame band;
+     bands against the whole-frame K1, K2, K3-step and K4 outputs (K8,
+     K9b and K10 with max error 0); times of each band and of the
+     whole-frame band; K7 and K10 again with bf16 and fp32 state;
   9. the row-sharded route: torch.distributed on NCCL with one rank on
      cuda:0, make_sharded_step for FRAMES Cornell 1080p frames as in phase
      6; checks the launches per frame (K7 1, K8 1, K9b 5, K10 1, and the
      intersector's), the image, and frame FRAMES against the unsharded
-     Renderer's; prints frame and stage milliseconds;
+     Renderer's; prints frame and stage milliseconds; then the same
+     frames with bf16 state;
  10. K2's block gate and list against the same kernel without them, on
      the test frame and on the inputs of Cornell frames 2-4 and 16 and
      terrain frames 4 and 16: the fallback layout each sees, both kernels
-     alone, and their outputs bit for bit equal.
+     alone, and their outputs bit for bit equal;
+ 11. K6 on a scene BVH deeper than its 64-entry stack: the nested scene
+     (100 heightfield sheets nested one in the next, depth 79; its walks
+     keep the entries past the stack in K6's global scratch) on its 480x270
+     primary rays and SCRAMBLED rays against the plain walk; on its 1080p
+     primary rays the Hit against the recompute of its winner, visits a
+     ray, Mrays/s and K6 alone; FRAMES 1080p frames through the kernels
+     with launch counts, and a frame of kernels against plain at 480x270
+     with one bounce (the plain walk is a host loop of thousands of steps
+     on this scene).
 Every kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its FP32 operations on these inputs over 67 TFLOP/s
 (the H100 SXM's published peaks at 700 W).
@@ -102,7 +118,7 @@ PEAK_FP32_PER_S = 67e12       # H100 SXM FP32 outside the tensor cores
 OPS_TEMPORAL = 60        # a pixel
 OPS_MOMENTS_TAP = 46     # a tap (49) of a fallback pixel; pass-through pixels none
 OPS_ATROUS_TAP = 52      # a tap (24) of a valid-depth pixel, per step
-OPS_TAA = 400            # a pixel (9 PAL-YUV encodes, box clamp, decode, sRGB)
+OPS_TAA = 170            # a pixel (a PAL-YUV encode, the box's 48 min/max, mix, decode, sRGB)
 OPS_MT = 55              # a ray-triangle test (Moller-Trumbore, verdict, best-so-far)
 OPS_SLAB = 28            # a scene-BVH box test (slab test, verdict); K6 makes two a record
 OPS_RECOMPUTE = 53       # a ray: the recompute of the winner's t/u/v
@@ -307,6 +323,21 @@ def frame_inputs(seed: int = 0):
     return cuda(rng.uniform(0, 1, (H, W, 3))), gbuf, state
 
 
+# the state types a RenderConfig offers, as the kernels name them
+STATE_TYPES = {"fp16": torch.float16, "bf16": torch.bfloat16, "fp32": torch.float32}
+# K4/K10 against svgf.taa: the same operations in the same order; powf
+# and sqrtf may round an ulp apart from torch's (the filter kernels' bar)
+TAA_TOL = 5.6e-6
+
+
+def state_as(state, dtype):
+    """frame_inputs' previous state with its float fields at `dtype`."""
+    cast = lambda x: x.to(dtype) if x.is_floating_point() else x
+    return state._replace(color=cast(state.color), moments=cast(state.moments),
+                          taa_history=cast(state.taa_history),
+                          gbuffer=type(state.gbuffer)(*map(cast, state.gbuffer)))
+
+
 def assert_stage(name, got, want, exact_tol=None):
     """Per-stage tolerances of tests/test_planar.py assert_stage_parity:
     atol 3e-5 for the temporal stage; downstream of the variance-guided
@@ -320,6 +351,15 @@ def assert_stage(name, got, want, exact_tol=None):
         assert mean_err < 1e-4, (name, mean_err)
         assert float((d > 2e-2).float().mean()) == 0.0, (name, max_err)
     return max_err
+
+
+def with_outliers(x, rng):
+    """x with 2% of its values drawn from [-1, 2) and 0.1% NaN."""
+    y = x.float().cpu().numpy()
+    u = rng.uniform(size=y.shape)
+    y[u < 0.02] = rng.uniform(-1.0, 2.0, int((u < 0.02).sum()))
+    y[u < 0.001] = np.nan
+    return torch.as_tensor(y, device=x.device).to(x.dtype)
 
 
 def check_filter_kernels() -> dict:
@@ -365,9 +405,35 @@ def check_filter_kernels() -> dict:
 
     x_args = (ap[0], state.taa_history)
     xp = P.taa(*x_args)
-    err = assert_stage("taa", K.taa(*x_args), xp)
+    err = assert_stage("taa", K.taa(*x_args), xp, TAA_TOL)
     results["taa"] = (err, bound(nbytes(*x_args, xp), px * OPS_TAA), lambda: K.taa(*x_args),
                       lambda: P.taa(*x_args))
+
+    # K1 and K4 with the state at the other types a RenderConfig offers
+    for label in ("bf16", "fp32"):
+        st = state_as(state, STATE_TYPES[label])
+        args = (radiance, st.color, gbuf, st.gbuffer, st.moments, st.history_len, *t_args[6:])
+        tk2, tp2 = K.temporal_filter(*args), P.temporal_filter(*args)
+        assert_stage(f"temporal, {label} state: color", tk2.color, tp2.color, 3e-5)
+        assert_stage(f"temporal, {label} state: moments", tk2.moments, tp2.moments, 3e-5)
+        assert torch.equal(tk2.history_len, tp2.history_len), (label, "temporal history")
+        assert torch.equal(tk2.reprojected, tp2.reprojected), (label, "temporal reprojected")
+        assert_stage(f"taa, {label} history", K.taa(ap[0], st.taa_history),
+                     P.taa(ap[0], st.taa_history), TAA_TOL)
+        t = time_call(lambda: K.temporal_filter(*args))
+        log(f"  temporal, {label} state: {t['ms']:.5f} ms through the wrapper, {t['alone_ms']:.5f} "
+            "ms alone")
+    # K4 where the clamps it leaves out and the box's NaN rule count (csrc/taa.cu):
+    # NaN and out-of-range colour and history, bit for bit
+    rng = np.random.default_rng(5)
+    odd = with_outliers(ap[0], rng)
+    for label, dtype in STATE_TYPES.items():
+        hist = with_outliers(state.taa_history.to(dtype), rng)
+        got, want = K.taa(odd, hist), P.taa(odd, hist)
+        black = float((want[..., :3] == 0).all(-1).float().mean())
+        assert torch.equal(got, want), (label, float((got - want).abs().nan_to_num(1.0).max()))
+        log(f"  taa, {label} history, NaN and out-of-range colour and history: bit-equal to "
+            f"plain ({100 * black:.3f}% of pixels black)")
 
     timed = {}
     for name, (err, b, kernel, plain) in results.items():
@@ -378,7 +444,27 @@ def check_filter_kernels() -> dict:
             f"(profiler) {kernel_alone_ms(kernel):.4f} ms")
     atrous_step_times(mp, gbuf)
     timed["moments"]["banded"] = moments_banded_times(tp, gbuf)
+    timed["taa"].update(taa_times(ap[0], state))
     return timed
+
+
+def taa_times(img, state) -> dict:
+    """K4 at 1080p with fp16, bf16 and fp32 history: through its wrapper
+    (events) and alone (profiler), each with its bound."""
+    from svgf_tpu_torch.kernels import filter as K
+
+    log(f"K4 (taa) at {W}x{H}, {K.TAA_TILE} tiles:")
+    res = {}
+    for label, dtype in STATE_TYPES.items():
+        hist = state.taa_history.to(dtype)
+        fn = lambda: K.taa(img, hist)
+        b = bound(nbytes(img, hist, fn()), H * W * OPS_TAA)
+        t = time_call(fn)
+        res[label] = {**t, "bound_ms": b["bound_ms"]}
+        log(f"  {label} history: {t['ms']:.5f} ms through the wrapper, {t['alone_ms']:.5f} ms alone; "
+            f"bound {b['bound_ms']:.5f} ms by {b['bound_by']} ({100 * b['bound_ms'] / t['alone_ms']:.1f}% "
+            f"of it alone)")
+    return res
 
 
 def check_moments(label, got, want, history_len, gbuf) -> float:
@@ -572,6 +658,42 @@ def halo_rows(x, r0: int, r1: int, halo: int, mode: str):
     return torch.cat(parts).contiguous()
 
 
+def temporal_band_call(radiance, gbuf, state, r0: int, r1: int) -> tuple:
+    """K7 on the band [r0, r1) with its prev window of `state` (at the
+    state's type): (kernel, plain, crop, bound)."""
+    from svgf_tpu_torch.config import SVGFConfig
+    from svgf_tpu_torch.kernels import filter as K
+    from svgf_tpu_torch.render import svgf as P
+    from svgf_tpu_torch.render.types import GBuffer
+
+    sv = SVGFConfig(spatial_filter_steps=5)
+    by = P.BOUND_Y
+    zero = lambda x: halo_rows(x, r0, r1, by, "zero")
+    g = GBuffer(*(x[r0:r1].contiguous() for x in gbuf))
+    win = GBuffer(*(zero(x) for x in state.gbuffer))
+    t_args = (radiance[r0:r1].contiguous(), zero(state.color), g, win, zero(state.moments),
+              zero(state.history_len), sv.depth_threshold, sv.normal_threshold,
+              sv.history_length, r0, H)
+    px = (r1 - r0) * W
+    t_bytes = nbytes(t_args[0], g.depth, g.normal, g.instance, g.motion, t_args[1], win.depth,
+                     win.normal, win.instance, t_args[4], t_args[5]) + px * (16 + 8 + 4 + 1)
+    return (lambda: K.temporal_filter_band(*t_args), lambda: P.temporal_filter_band(*t_args),
+            lambda x: x, bound(t_bytes, px * OPS_TEMPORAL))
+
+
+def taa_band_call(a_full, history, r0: int, r1: int) -> tuple:
+    """K10 on the band [r0, r1) of the a-trous output and the TAA history
+    (at its type), each extended by one edge row: (kernel, plain, crop,
+    bound)."""
+    from svgf_tpu_torch.kernels import filter as K
+    from svgf_tpu_torch.render import svgf as P
+
+    x_args = (halo_rows(a_full, r0, r1, 1, "edge"), halo_rows(history, r0, r1, 1, "edge"))
+    px = (r1 - r0 + 2) * W
+    return (lambda: K.taa_band(*x_args), lambda: P.taa(*x_args), lambda x: x[1:x.shape[0] - 1],
+            bound(nbytes(*x_args) + px * 16, px * OPS_TAA))
+
+
 def band_calls(radiance, gbuf, state, t_full, m_full, a_full, r0: int, r1: int) -> dict:
     """K7, K8, K9b (the five steps) and K10 on the band [r0, r1) of the
     frame: {name: (kernel, plain, crop, bound)}; `crop` keeps the band's
@@ -586,15 +708,6 @@ def band_calls(radiance, gbuf, state, t_full, m_full, a_full, r0: int, r1: int) 
     ext_gbuf = lambda halo: GBuffer(*(zero(x, halo) for x in gbuf))
     px = lambda halo: (r1 - r0 + 2 * halo) * W
     crop = lambda halo: (lambda x: x[halo:x.shape[0] - halo])
-    by = P.BOUND_Y
-
-    g = GBuffer(*(x[r0:r1].contiguous() for x in gbuf))
-    win = GBuffer(*(zero(x, by) for x in state.gbuffer))
-    t_args = (radiance[r0:r1].contiguous(), zero(state.color, by), g, win, zero(state.moments, by),
-              zero(state.history_len, by), sv.depth_threshold, sv.normal_threshold,
-              sv.history_length, r0, H)
-    t_bytes = nbytes(t_args[0], g.depth, g.normal, g.instance, g.motion, t_args[1], win.depth,
-                     win.normal, win.instance, t_args[4], t_args[5]) + px(0) * (16 + 8 + 4 + 1)
 
     g3 = ext_gbuf(3)
     m_args = (zero(t_full.color, 3), zero(t_full.moments, 3), g3,
@@ -609,18 +722,14 @@ def band_calls(radiance, gbuf, state, t_full, m_full, a_full, r0: int, r1: int) 
     a_ops = sum(int((a[1].depth != 0).sum()) * 24 * OPS_ATROUS_TAP for a in a_args.values())
     a_crop = lambda outs: [crop(2 * st)(o) for st, o in zip(ATROUS_STEPS, outs)]
 
-    x_args = (halo_rows(a_full, r0, r1, 1, "edge"), halo_rows(state.taa_history, r0, r1, 1, "edge"))
     return {
-        "temporal_band": (lambda: K.temporal_filter_band(*t_args),
-                          lambda: P.temporal_filter_band(*t_args), lambda x: x,
-                          bound(t_bytes, px(0) * OPS_TEMPORAL)),
+        "temporal_band": temporal_band_call(radiance, gbuf, state, r0, r1),
         "moments_band": (lambda: K.filter_moments_band(*m_args), lambda: P.filter_moments(*m_args),
                          crop(3), bound(m_bytes, fallback * 49 * OPS_MOMENTS_TAP)),
         "atrous_iteration": (lambda: [K.atrous_iteration(*a_args[st]) for st in ATROUS_STEPS],
                              lambda: [P.atrous_iteration(*a_args[st]) for st in ATROUS_STEPS],
                              a_crop, bound(a_bytes, a_ops)),
-        "taa_band": (lambda: K.taa_band(*x_args), lambda: P.taa(*x_args), crop(1),
-                     bound(nbytes(*x_args) + px(1) * 16, px(1) * OPS_TAA)),
+        "taa_band": taa_band_call(a_full, state.taa_history, r0, r1),
     }
 
 
@@ -636,6 +745,7 @@ def check_band_outputs(label, name, got, want) -> float:
                    for st, g, w in zip(ATROUS_STEPS, got, want))
     err = assert_stage(label, got, want)
     assert name != "moments_band" or err <= 1e-5, (label, err)
+    assert name != "taa_band" or err <= TAA_TOL, (label, err)
     return err
 
 
@@ -684,24 +794,65 @@ def check_band_kernels() -> dict:
                 stitched[name].append(crop(got))
 
     log("stitched bands vs the whole-frame kernels:")
-    color = torch.cat([t.color for t in stitched["temporal_band"]])
-    moments = torch.cat([t.moments for t in stitched["temporal_band"]])
-    history = torch.cat([t.history_len for t in stitched["temporal_band"]])
-    valid = torch.cat([t.reprojected for t in stitched["temporal_band"]])
-    ib = in_bound
-    assert_stage("temporal color (within the bound)", color[ib], t_full.color[ib], 3e-5)
-    assert_stage("temporal moments (within the bound)", moments[ib], t_full.moments[ib], 3e-5)
-    assert torch.equal(history[ib], t_full.history_len[ib]), "temporal history"
-    assert torch.equal(valid[ib], t_full.reprojected[ib]), "temporal reprojected"
-    assert not bool(valid[~ib].any()) and bool((history[~ib] == 1).all()), "out of the bound"
-    log(f"  temporal: {int((~ib).sum())} pixels beyond the bound, all disoccluded "
-        f"({int((t_full.reprojected & ~ib).sum())} of them reprojected by K1's unbounded gather)")
+    check_stitched_temporal("temporal", stitched["temporal_band"], t_full, in_bound)
     assert_stage("moments", torch.cat(stitched["moments_band"]), m_full, 0.0)  # zero rows add 0
     for k, st in enumerate(ATROUS_STEPS):   # a zero-halo tap adds exactly 0
         assert_stage(f"atrous step {st}", torch.cat([o[k] for o in stitched["atrous_iteration"]]),
                      steps_full[k], 0.0)
-    assert_stage("taa", torch.cat(stitched["taa_band"]), x_full)
+    # the edge rows make each band's taps the whole frame's: the same bits
+    assert_stage("taa", torch.cat(stitched["taa_band"]), x_full, 0.0)
+    check_band_state_types(radiance, gbuf, state, a_full, bands, in_bound)
     return results
+
+
+def check_stitched_temporal(label, bands, t_full, in_bound) -> None:
+    """K7's stitched bands against the whole-frame K1 within K7's motion
+    bound; beyond it every pixel is a disocclusion."""
+    color = torch.cat([t.color for t in bands])
+    moments = torch.cat([t.moments for t in bands])
+    history = torch.cat([t.history_len for t in bands])
+    valid = torch.cat([t.reprojected for t in bands])
+    ib = in_bound
+    assert_stage(f"{label} color (within the bound)", color[ib], t_full.color[ib], 3e-5)
+    assert_stage(f"{label} moments (within the bound)", moments[ib], t_full.moments[ib], 3e-5)
+    assert torch.equal(history[ib], t_full.history_len[ib]), (label, "history")
+    assert torch.equal(valid[ib], t_full.reprojected[ib]), (label, "reprojected")
+    assert not bool(valid[~ib].any()) and bool((history[~ib] == 1).all()), (label, "out of the bound")
+    log(f"  {label}: {int((~ib).sum())} pixels beyond the bound, all disoccluded "
+        f"({int((t_full.reprojected & ~ib).sum())} of them reprojected by K1's unbounded gather)")
+
+
+def check_band_state_types(radiance, gbuf, state, a_full, bands, in_bound) -> None:
+    """K7 and K10 with the state at bf16 and fp32 on each band against
+    their plain versions, and their stitched bands against the whole-frame
+    K1 and K4 at the same type (K10: max error 0)."""
+    from svgf_tpu_torch.config import SVGFConfig
+    from svgf_tpu_torch.kernels import filter as K
+
+    sv = SVGFConfig(spatial_filter_steps=5)
+    for label in ("bf16", "fp32"):
+        st = state_as(state, STATE_TYPES[label])
+        log(f"band kernels K7 and K10 with {label} state:")
+        t_full = K.temporal_filter(radiance, st.color, gbuf, st.gbuffer, st.moments,
+                                   st.history_len, sv.depth_threshold, sv.normal_threshold,
+                                   sv.history_length)
+        x_full = K.taa(a_full, st.taa_history)
+        stitched = {"temporal_band": [], "taa_band": []}
+        for r0, r1 in bands:
+            calls = {"temporal_band": temporal_band_call(radiance, gbuf, st, r0, r1),
+                     "taa_band": taa_band_call(a_full, st.taa_history, r0, r1)}
+            for name, (kernel, plain, crop, _) in calls.items():
+                got = kernel()
+                check_band_outputs(f"{name} {label} rows [{r0}, {r1})", name, got, plain())
+                if (r0, r1) != (0, H):
+                    stitched[name].append(crop(got))
+                if (r0, label) == (0, "bf16"):
+                    t = time_call(kernel)
+                    log(f"  {name} {label} rows [{r0}, {r1}): {t['ms']:.5f} ms through the wrapper, "
+                        f"{t['alone_ms']:.5f} ms alone")
+        check_stitched_temporal(f"stitched {label} temporal", stitched["temporal_band"], t_full,
+                                in_bound)
+        assert_stage(f"stitched {label} taa", torch.cat(stitched["taa_band"]), x_full, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -885,6 +1036,42 @@ def clustered_calls(arrays, rays) -> dict:
             for name, (ro, rd) in rays.items()}
 
 
+def check_k6_hit(arrays, label, ro, rd, kw):
+    """The Hit K6 writes on one case against the recompute of its winner,
+    bit for bit on every lane, and the wrapper's Hit equal to it. Returns
+    the wrapper's Hit."""
+    from svgf_tpu_torch.kernels import intersect as KI
+    from svgf_tpu_torch.ops.intersect import hit_from_winner, start_dist
+
+    t0 = start_dist(kw.get("tmax"), ro.shape[0], ro.device)
+    r = KI._rays(ro, rd, kw.get("active"), kw.get("tmax"))
+    hit, col, _ = KI.bvh_hit(arrays, *r, kw.get("only_instance"), with_col=True)
+    rec = hit_from_winner(arrays, ro, rd, col, t0, kw.get("active"))
+    differ = {f: int((getattr(hit, f) != getattr(rec, f)).sum()) for f in hit._fields}
+    log(f"  {label}: in-kernel Hit vs the recompute of its winner, lanes that differ: {differ}")
+    assert not any(differ.values()), (label, differ)
+    got = KI.intersect_clustered_kernel(arrays, ro, rd, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, hit)), label
+    return got
+
+
+def check_k6_case(arrays, label, ro, rd, kw) -> float:
+    """K6 on one case against traverse_scene_bvh, to check_clustered_kernel's
+    bars, and its Hit against the recompute of its winner (check_k6_hit).
+    Returns the max error where the winners agree."""
+    from svgf_tpu_torch.ops.intersect import start_dist, traverse_scene_bvh
+
+    t0 = start_dist(kw.get("tmax"), ro.shape[0], ro.device)
+    got = check_k6_hit(arrays, label, ro, rd, kw)
+    st = compare_hits(label, got, traverse_scene_bvh(arrays, ro, rd, **kw), t0, kw.get("active"))
+    assert st["hits"] > 0 and st["hit_sets_differ"] == 0, (label, st)
+    assert st["rel_max"] < 2e-3 and st["rel_below_1e-5"] >= 0.99, (label, st)
+    assert st["agree"] >= 0.9999, (label, st)
+    if "only_instance" in kw:
+        assert bool((got.instance[got.dist < t0] == kw["only_instance"]).all()), label
+    return st["max_abs_err"]
+
+
 def check_clustered_kernel(arrays, rays, rng) -> dict:
     """K6 against traverse_scene_bvh on the stress terrain. Bars
     (tests/test_clustered.py:92-96): hit/miss sets equal; relative dist
@@ -899,9 +1086,7 @@ def check_clustered_kernel(arrays, rays, rng) -> dict:
     the skip-link walk's counts, the yardstick the earlier design was
     bound by, is kept beside it to read both designs against the same work."""
     from svgf_tpu_torch.kernels import intersect as KI
-    from svgf_tpu_torch.ops.intersect import (
-        _walk_scene_bvh, hit_from_winner, start_dist, traverse_scene_bvh,
-    )
+    from svgf_tpu_torch.ops.intersect import _walk_scene_bvh, start_dist, traverse_scene_bvh
 
     ro_p, rd_p = rays["primary"]
     ro_s, rd_s = rays["scrambled"]
@@ -912,34 +1097,15 @@ def check_clustered_kernel(arrays, rays, rng) -> dict:
     rd_up = cuda(np.tile([[0.0, 1.0, 0.0]], (n, 1)))   # axis-aligned: 0 * inf in the slab test
     _, bvh = KI.packed_scene(arrays)
     log(f"K6 intersect_clustered vs plain walk, {lanes} primary rays, {n} scrambled; the scene BVH "
-        f"repacked into {bvh.nodes.shape[0]} child-pair records, depth {bvh.depth} (stack "
-        f"{KI.BVH_STACK}):")
+        f"repacked into {bvh.nodes.shape[0]} child-pair records, depth {bvh.depth} (scratch "
+        f"entries a ray past the stack: {KI.spill_entries(bvh.depth)}):")
     cases = (
         ("primary (1080p, 64x64 blocks)", ro_p, rd_p, {}),
         ("scrambled", ro_s, rd_s, {}),
         ("scrambled, active + tmax", ro_s, rd_s, {"active": active, "tmax": tmax}),
         ("straight up, only_instance=1", ro_up, rd_up, {"only_instance": 1}),
     )
-    errs = []
-    for label, ro, rd, kw in cases:
-        got = KI.intersect_clustered_kernel(arrays, ro, rd, **kw)
-        want = traverse_scene_bvh(arrays, ro, rd, **kw)
-        t0 = start_dist(kw.get("tmax"), ro.shape[0], ro.device)
-        st = compare_hits(label, got, want, t0, kw.get("active"))
-        assert st["hits"] > 0 and st["hit_sets_differ"] == 0, (label, st)
-        assert st["rel_max"] < 2e-3 and st["rel_below_1e-5"] >= 0.99, (label, st)
-        assert st["agree"] >= 0.9999, (label, st)
-        if "only_instance" in kw:
-            assert bool((got.instance[got.dist < t0] == 1).all()), label
-        errs.append(st["max_abs_err"])
-        # the in-kernel Hit against the recompute of the same launch's winner
-        r = KI._rays(ro, rd, kw.get("active"), kw.get("tmax"))
-        hit, col, _ = KI.bvh_hit(arrays, *r, kw.get("only_instance"), with_col=True)
-        rec = hit_from_winner(arrays, ro, rd, col, t0, kw.get("active"))
-        differ = {f: int((getattr(hit, f) != getattr(rec, f)).sum()) for f in hit._fields}
-        log(f"  {label}: in-kernel Hit vs the recompute of its winner, lanes that differ: {differ}")
-        assert not any(differ.values()), (label, differ)
-        assert all(torch.equal(a, b) for a, b in zip(got, hit)), label
+    errs = [check_k6_case(arrays, label, ro, rd, kw) for label, ro, rd, kw in cases]
 
     names, launched = device_kernels(lambda: KI.intersect_clustered_kernel(arrays, ro_s, rd_s))
     log(f"  10 calls without grad: {launched} launches of K6; the profiler saw {len(names)} "
@@ -1020,16 +1186,18 @@ def profile_step(label, renderer, frame_ms: float) -> tuple[float, int]:
     return busy, len(kernels)
 
 
-def run_frames(scene, orbit, h, w, use_pallas: str, chunks: int, frames: int = FRAMES):
+def run_frames(scene, orbit, h, w, use_pallas: str, chunks: int, frames: int = FRAMES,
+               state_dtype: str = "float16", bounces: int = 3):
     """`frames` frames through Renderer.step, the camera set by orbit(f)
     (None keeps it) before frame f. Returns (last FrameOutputs, per-frame
     stage milliseconds, the Renderer)."""
-    from svgf_tpu_torch.config import RenderConfig, SVGFConfig
+    from svgf_tpu_torch.config import RenderConfig, SVGFConfig, TracingConfig
     from svgf_tpu_torch.render.pipeline import Renderer
 
     cfg = RenderConfig(
-        width=w, height=h, svgf=SVGFConfig(spatial_filter_steps=5), state_dtype="float16",
+        width=w, height=h, svgf=SVGFConfig(spatial_filter_steps=5), state_dtype=state_dtype,
         keep_taps=False, use_pallas=use_pallas, trace_chunks=chunks,
+        tracing=TracingConfig(bounces=bounces),
     )
     cam0 = scene.cameras[0]
     r = Renderer(scene, cfg, device=DEVICE)
@@ -1079,8 +1247,8 @@ def check_image(out, h, w, label):
     assert float(final.mean()) > 0.05, f"{label}: the final image is black"
 
 
-def compare_frames(label, got, want):
-    """Frame FRAMES through the kernels against the plain versions: mean
+def compare_frames(label, got, want, frame: int = FRAMES):
+    """Frame `frame` through the kernels against the plain versions: mean
     < 1e-3 and at most 0.01% of pixels above 5e-2. A primary ray through
     an edge shared by two triangles may pick the other one (the kernel and
     the plain sweep round alike but need not agree on such ties), and the
@@ -1088,7 +1256,7 @@ def compare_frames(label, got, want):
     d = (got.final - want.final).abs()
     over = int((d.amax(-1) > 5e-2).sum())
     n = d.shape[0] * d.shape[1]
-    log(f"{label} frame {FRAMES} final, kernels vs plain on the card: max {float(d.max()):.3e} "
+    log(f"{label} frame {frame} final, kernels vs plain on the card: max {float(d.max()):.3e} "
         f"mean {float(d.mean()):.3e}, {over} of {n} pixels above 5e-2")
     assert float(d.mean()) < 1e-3 and over <= 1e-4 * n, (label, float(d.mean()), over)
 
@@ -1155,6 +1323,28 @@ def check_main_path() -> dict:
     return launches
 
 
+def check_bf16_path() -> None:
+    """The main path with bfloat16 state: FRAMES Cornell 1080p frames
+    through the kernels, K1 and K4 reading the bf16 state, with the fp16
+    frames' launch counts; frame FRAMES against the plain route's."""
+    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    scene = cornell_box(aspect=W / H)
+    reset_launches()
+    out, stages, r = run_frames(scene, cornell_orbit, H, W, "on", TRACE_CHUNKS,
+                                state_dtype="bfloat16")
+    launches = dict(LAUNCHES)
+    log(f"Cornell 1080p, bf16 state, launches over {FRAMES} frames: {launches}")
+    assert launches == expected_launches("intersect_dense", TRACE_CHUNKS), launches
+    assert r.state.color.dtype == torch.bfloat16 and r.state.taa_history.dtype == torch.bfloat16
+    check_image(out, H, W, "Cornell bf16")
+    plain_out, _, _ = run_frames(scene, cornell_orbit, H, W, "off", TRACE_CHUNKS,
+                                 state_dtype="bfloat16")
+    compare_frames("Cornell 1080p bf16", out, plain_out)
+    log_stages("Cornell bf16 kernels", stages)
+
+
 def free_port() -> int:
     import socket
 
@@ -1163,20 +1353,71 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def sharded_frames(mesh, device, state_dtype: str):
+    """FRAMES Cornell 1080p frames through make_sharded_step, the launch
+    counts set to 0 just before them and read just after, and the same
+    frames through the unsharded Renderer. Returns (the last sharded
+    FrameOutputs and state, per-frame stage ms, the launches, the
+    unsharded Renderer after its last frame and that frame)."""
+    from svgf_tpu_torch.config import RenderConfig, SVGFConfig
+    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
+    from svgf_tpu_torch.parallel import make_sharded_step
+    from svgf_tpu_torch.render.pipeline import STATE_DTYPES, Renderer
+    from svgf_tpu_torch.render.types import TemporalState
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    cfg = RenderConfig(width=W, height=H, svgf=SVGFConfig(spatial_filter_steps=5),
+                       state_dtype=state_dtype, keep_taps=True, use_pallas="on",
+                       trace_chunks=TRACE_CHUNKS)
+    orbit = cornell_orbit
+    step = make_sharded_step(cfg, mesh)
+    holder = Renderer(cornell_box(aspect=W / H), cfg, device=device)   # scene and camera
+    state = TemporalState.initial(H // mesh.size, W, STATE_DTYPES[state_dtype], device)
+    stages = []
+    reset_launches()
+    for f in range(FRAMES):
+        if orbit(f) is not None:
+            holder.update_camera(orbit(f))
+        events = {}
+        torch.cuda.synchronize()
+        out, state = step(holder.arrays, state, events)
+        torch.cuda.synchronize()
+        names = list(events)
+        ms = {b: events[a].elapsed_time(events[b]) for a, b in zip(names, names[1:])}
+        ms["frame"] = events[names[0]].elapsed_time(events[names[-1]])
+        stages.append(ms)
+    launches = dict(LAUNCHES)
+    log(f"sharded route (Cornell 1080p, 1 rank, {state_dtype} state) launches over {FRAMES} "
+        f"frames: {launches}")
+    per_frame = TRACE_CHUNKS * cfg.tracing.batch * (cfg.tracing.bounces + (not cfg.hybrid_primary))
+    expect = dict.fromkeys(LAUNCHES, 0)
+    expect.update(temporal_band=FRAMES, moments_band=FRAMES, atrous_iteration=5 * FRAMES,
+                  taa_band=FRAMES, intersect_dense=FRAMES * (1 + per_frame))
+    assert launches == expect, (launches, expect)
+    assert state.color.dtype == STATE_DTYPES[state_dtype], state.color.dtype
+    final = out.final
+    assert final.shape == (H, W, 3) and bool(torch.isfinite(final).all()), "sharded final"
+    assert float(final.min()) >= 0.0 and float(final.max()) <= 1.0, "sharded final outside [0, 1]"
+
+    # the same frames through the unsharded Renderer
+    ref = Renderer(cornell_box(aspect=W / H), cfg, device=device)
+    for f in range(FRAMES):
+        if orbit(f) is not None:
+            ref.update_camera(orbit(f))
+        want = ref.step()
+    return out, state, stages, launches, ref, want
+
+
 def check_sharded_route() -> dict:
     """Phase 9: make_sharded_step on one NCCL rank, FRAMES Cornell 1080p
-    frames, against the unsharded Renderer's frames."""
+    frames, against the unsharded Renderer's frames; then the same with
+    bf16 state (K7 and K10 reading it)."""
     import os
 
     import torch.distributed as dist
 
-    from svgf_tpu_torch.config import RenderConfig, SVGFConfig
-    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
-    from svgf_tpu_torch.parallel import init_distributed, make_row_mesh, make_sharded_step
-    from svgf_tpu_torch.render.pipeline import Renderer
+    from svgf_tpu_torch.parallel import init_distributed, make_row_mesh
     from svgf_tpu_torch.render.svgf import BOUND_X, BOUND_Y
-    from svgf_tpu_torch.render.types import TemporalState
-    from svgf_tpu_torch.scenes.cornell import cornell_box
 
     os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
                       MASTER_PORT=str(free_port()))
@@ -1186,44 +1427,8 @@ def check_sharded_route() -> dict:
         "rank no collective is issued (halo.py's n == 1 branch: the halos are the image's zero "
         "or edge rows)")
     try:
-        cfg = RenderConfig(width=W, height=H, svgf=SVGFConfig(spatial_filter_steps=5),
-                           state_dtype="float16", keep_taps=True, use_pallas="on",
-                           trace_chunks=TRACE_CHUNKS)
-        orbit = cornell_orbit
-        step = make_sharded_step(cfg, mesh)
-        holder = Renderer(cornell_box(aspect=W / H), cfg, device=device)   # scene and camera
-        state = TemporalState.initial(H // mesh.size, W, torch.float16, device)
-        stages = []
-        reset_launches()
-        for f in range(FRAMES):
-            if orbit(f) is not None:
-                holder.update_camera(orbit(f))
-            events = {}
-            torch.cuda.synchronize()
-            out, state = step(holder.arrays, state, events)
-            torch.cuda.synchronize()
-            names = list(events)
-            ms = {b: events[a].elapsed_time(events[b]) for a, b in zip(names, names[1:])}
-            ms["frame"] = events[names[0]].elapsed_time(events[names[-1]])
-            stages.append(ms)
-        launches = dict(LAUNCHES)
-        log(f"sharded route (Cornell 1080p, 1 rank) launches over {FRAMES} frames: {launches}")
-        per_frame = TRACE_CHUNKS * cfg.tracing.batch * (cfg.tracing.bounces + (not cfg.hybrid_primary))
-        expect = dict.fromkeys(LAUNCHES, 0)
-        expect.update(temporal_band=FRAMES, moments_band=FRAMES, atrous_iteration=5 * FRAMES,
-                      taa_band=FRAMES, intersect_dense=FRAMES * (1 + per_frame))
-        assert launches == expect, (launches, expect)
-        final = out.final
-        assert final.shape == (H, W, 3) and bool(torch.isfinite(final).all()), "sharded final"
-        assert float(final.min()) >= 0.0 and float(final.max()) <= 1.0, "sharded final outside [0, 1]"
+        out, state, stages, launches, ref, want = sharded_frames(mesh, device, "float16")
         log_stages("sharded route", stages)
-
-        # the same frames through the unsharded Renderer
-        ref = Renderer(cornell_box(aspect=W / H), cfg, device=device)
-        for f in range(FRAMES):
-            if orbit(f) is not None:
-                ref.update_camera(orbit(f))
-            want = ref.step()
         m = out.gbuffer.motion.to(torch.int32)
         beyond = int(((m[..., 1].abs() > BOUND_Y) | (m[..., 0].abs() > BOUND_X)).sum())
         log(f"sharded vs unsharded, frame {FRAMES} ({beyond} pixels move beyond K7's bound):")
@@ -1236,6 +1441,13 @@ def check_sharded_route() -> dict:
         for field in ("color", "moments"):
             assert_stage(f"state {field}", getattr(state, field), getattr(ref.state, field), 3e-5)
         assert torch.equal(state.history_len, ref.state.history_len), "state history"
+
+        out_bf, _, _, _, _, want_bf = sharded_frames(mesh, device, "bfloat16")
+        d = (out_bf.final - want_bf.final).abs()
+        log(f"sharded vs unsharded, bf16 state, frame {FRAMES} final: max_abs_err "
+            f"{float(d.max()):.3e} mean_abs_err {float(d.mean()):.3e}")
+        assert_stage("bf16 radiance", out_bf.radiance, want_bf.radiance, 1e-6)
+        assert float(d.mean()) < 1e-4 and not bool((d > 5e-3).any()), "sharded bf16 final"
         return launches
     finally:
         dist.destroy_process_group()
@@ -1261,16 +1473,128 @@ def check_stress_path(scene) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# a deep scene BVH: K6's stack and its scratch
+# ---------------------------------------------------------------------------
+
+NESTED_N = 100   # nested_scene(n=100): 20,002 world triangles, scene BVH depth 79
+NESTED_PLAIN_BOUNCES = 1   # the frame held to the plain route (its walk is a host loop)
+
+
+def nested_arrays(n: int):
+    """nested_scene(n) flattened on the card, with its host seconds."""
+    from svgf_tpu_torch.kernels import intersect as KI
+    from svgf_tpu_torch.scenes.nested import nested_scene
+
+    scene = nested_scene(n=n, aspect=W / H)
+    t_host = time.perf_counter()
+    arrays = scene.flatten(device=DEVICE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_host
+    depth = KI.packed_scene(arrays)[1].depth
+    log(f"nested_scene(n={n}): flatten (NumPy BVH build) {seconds:.3f} s host; "
+        f"{arrays.meta.n_world_tris} world triangles, scene BVH depth {depth}, K6's scratch "
+        f"entries a ray past its {KI.BVH_STACK}-entry stack: {KI.spill_entries(depth)}")
+    assert arrays.meta.soup_leaf_order and arrays.meta.has_scene_bvh
+    return scene, arrays, depth, seconds
+
+
+def nested_rays(arrays, h: int, w: int) -> dict:
+    """The scene camera's h x w primary rays in 64x64 blocks (the G-buffer's
+    lane order on a large scene) and SCRAMBLED seeded rays from below the
+    nest, up into it: {name: (ro, rd)}."""
+    from svgf_tpu_torch.ops.geometry import normalize
+    from svgf_tpu_torch.render.gbuffer import camera_rays
+    from svgf_tpu_torch.render.pathtrace import make_block_order
+
+    fwd, _, _ = make_block_order(h, w)
+    ro_p, rd_p = camera_rays(arrays.cam_frame[0], arrays.cam_proj[0], h, w)
+    rng = np.random.default_rng(4)
+    ro_s = cuda(rng.uniform((-1.0, -0.6, -1.0), (1.0, -0.2, 1.0), (SCRAMBLED, 3)))
+    d = rng.standard_normal((SCRAMBLED, 3))
+    d[:, 1] = np.abs(d[:, 1]) + 0.2
+    return {"primary": (fwd(ro_p), fwd(rd_p)), "scrambled": (ro_s, normalize(cuda(d)))}
+
+
+def nested_orbit(f: int):
+    """The nested scene's camera before frame f: its eye turned 0.01 rad a
+    frame about the vertical axis (None keeps frame 0's)."""
+    from svgf_tpu_torch.core.camera import look_at_frame
+    from svgf_tpu_torch.scenes.nested import EYE, TARGET
+
+    if not f:
+        return None
+    a = 0.01 * f
+    x, y, z = EYE
+    return look_at_frame(eye=[x * math.cos(a) + z * math.sin(a), y, z * math.cos(a) - x * math.sin(a)],
+                         target=list(TARGET))
+
+
+def check_nested_scene() -> dict:
+    """K6 on a scene BVH deeper than its 64-entry stack: the nested scene
+    (depth 79), whose walks keep the entries past the stack in K6's global
+    scratch (in the CPU model of the walk 82% of the camera's rays hold
+    more than 64 entries at once). Its SMALL_H x SMALL_W primary rays and
+    SCRAMBLED rays from below against the plain walk, a host loop of
+    thousands of steps here; on its 1080p primary rays the Hit against the
+    recompute of its winner; visits a ray, K6 through its wrapper and
+    alone on the 1080p and the scrambled rays; FRAMES 1080p frames through
+    the kernels with the launch counts, and one frame of the kernels
+    against plain at SMALL_H x SMALL_W with NESTED_PLAIN_BOUNCES bounces."""
+    from svgf_tpu_torch.kernels import intersect as KI
+    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
+
+    scene, arrays, depth, seconds = nested_arrays(NESTED_N)
+    assert KI.spill_entries(depth) > 0, depth
+    log(f"K6 on the nested scene (depth {depth}) vs plain walk:")
+    for name, (ro, rd) in nested_rays(arrays, SMALL_H, SMALL_W).items():
+        check_k6_case(arrays, f"{name} ({ro.shape[0]} rays)", ro, rd, {})
+    rays = nested_rays(arrays, H, W)
+    check_k6_hit(arrays, f"primary ({H * W} rays)", *rays["primary"], {})
+    res = {"depth": depth, "flatten_s": seconds, "triangles": arrays.meta.n_world_tris}
+    for name, (ro, rd) in rays.items():
+        _, _, st = KI.bvh_hit(arrays, *KI._rays(ro, rd, None, None), stats=True)
+        counts = visit_counts(f"{name}, K6 (child-pair records)", st[:, 0], st[:, 1])
+        t = time_call(lambda: KI.intersect_clustered_kernel(arrays, ro, rd))
+        n = ro.shape[0]
+        log(f"  {name}: {n} rays, {t['ms']:.4f} ms through the wrapper ({n / (t['ms'] * 1e3):.1f} "
+            f"Mrays/s), {t['alone_ms']:.4f} ms alone ({n / (t['alone_ms'] * 1e3):.1f} Mrays/s)")
+        res[name] = {**t, **counts}
+
+    reset_launches()
+    out, stages, r = run_frames(scene, nested_orbit, H, W, "on", TRACE_CHUNKS)
+    launches = dict(LAUNCHES)
+    log(f"nested scene 1080p launches over {FRAMES} frames: {launches}")
+    assert launches == expected_launches("intersect_clustered", TRACE_CHUNKS), launches
+    check_image(out, H, W, "nested")
+    inst = r.state.gbuffer.instance
+    sheets = int(torch.unique(inst[(inst >= 0) & (inst < NESTED_N)]).numel())
+    log(f"nested scene: the camera sees {sheets} of its {NESTED_N} sheets")
+    assert sheets > NESTED_N // 2, sheets
+    log_stages("nested kernels", stages)
+    small, _, _ = run_frames(scene, nested_orbit, SMALL_H, SMALL_W, "on", 1, 1,
+                             bounces=NESTED_PLAIN_BOUNCES)
+    small_plain, small_plain_stages, _ = run_frames(scene, nested_orbit, SMALL_H, SMALL_W, "off", 1,
+                                                    1, bounces=NESTED_PLAIN_BOUNCES)
+    compare_frames(f"nested {SMALL_W}x{SMALL_H}, {NESTED_PLAIN_BOUNCES} bounce", small, small_plain,
+                   1)
+    log(f"nested {SMALL_W}x{SMALL_H} plain frame ms: "
+        f"{[round(st['frame'], 3) for st in small_plain_stages]}")
+    res["frame_ms"] = statistics.median(st["frame"] for st in stages[1:])
+    return res
+
+
 def compare_times() -> dict:
-    """The times the redesigns of K2/K8 and K6 should move, measured on the
-    tree of the port that is imported, with only the wrappers' public
-    calls, so that the same function times an earlier tree too (run it
-    from each checkout in turn, in one chip call): K2 on frame_inputs'
+    """The times the redesigns of K2/K8, K6 and K4/K10 should move, measured
+    on the tree of the port that is imported, with only the wrappers'
+    public calls, so that the same function times an earlier tree too (run
+    it from each checkout in turn, in one chip call): K2 on frame_inputs'
     scattered and banded fallback pixels, K8 on the 1080-row and the
-    [0, 270) band, K6 on the primary and the scrambled rays (wrapper by
-    events, kernel alone by the profiler), the profiled terrain and Cornell
-    frames' device time and kernels, and the Cornell frame's moments
-    stage. Prints them as one JSON line "compare: {...}"."""
+    [0, 270) band, K4 at 1080p with fp16 and fp32 history, K10 on the
+    four 270-row bands and the 1080-row band, K6 on the primary and the
+    scrambled rays (wrapper by events, kernel alone by the profiler), the
+    profiled terrain and Cornell frames' device time and kernels, and the
+    Cornell frame's moments stage. Prints them as one JSON line "compare: {...}"."""
     import svgf_tpu_torch
     from svgf_tpu_torch.config import SVGFConfig
     from svgf_tpu_torch.kernels import filter as K
@@ -1294,6 +1618,11 @@ def compare_times() -> dict:
     for r0, r1 in ((0, H), (0, H // NBANDS)):
         calls = band_calls(radiance, gbuf, state, tp, m_full, a_full, r0, r1)
         res[f"K8 [{r0}, {r1})"] = time_call(calls["moments_band"][0])
+    for label in ("fp16", "fp32"):
+        hist = state.taa_history.to(STATE_TYPES[label])
+        res[f"K4 {label}"] = time_call(lambda: K.taa(a_full, hist))
+    for r0, r1 in [(b * H // NBANDS, (b + 1) * H // NBANDS) for b in range(NBANDS)] + [(0, H)]:
+        res[f"K10 [{r0}, {r1})"] = time_call(taa_band_call(a_full, state.taa_history, r0, r1)[0])
 
     stress = stress_scene(n=STRESS_N, aspect=W / H)
     arrays = stress_arrays(stress)
@@ -1327,30 +1656,40 @@ def moments_design_cases(stress) -> dict:
     return cases
 
 
+def phase(name: str, fn, *args):
+    """fn(*args), with its seconds of command time logged."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = check_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_kernels()
-    timed = check_filter_kernels()
-    timed.update(check_band_kernels())
-    timed["intersect_dense"] = check_dense_kernel()
+    phase("build", build_kernels)
+    timed = phase("filter kernels", check_filter_kernels)
+    timed.update(phase("band kernels", check_band_kernels))
+    timed["intersect_dense"] = phase("K5", check_dense_kernel)
 
     from svgf_tpu_torch.scenes.stress import stress_scene
 
     stress = stress_scene(n=STRESS_N, aspect=W / H)
-    arrays = stress_arrays(stress)
-    timed["intersect_clustered"] = check_clustered_kernel(arrays, *stress_rays(arrays))
-    launches = check_main_path()
+    arrays = phase("terrain flatten", stress_arrays, stress)
+    timed["intersect_clustered"] = phase("K6", check_clustered_kernel, arrays, *stress_rays(arrays))
+    launches = phase("main path", check_main_path)
+    phase("main path, bf16 state", check_bf16_path)
     # K9a is K3's chain (one function in the port's one layout): its row is K3's call
     timed["atrous_chain"], launches["atrous_chain"] = timed["atrous"], launches["atrous"]
-    sharded_launches = check_sharded_route()
+    sharded_launches = phase("sharded route", check_sharded_route)
     for name in ("temporal_band", "moments_band", "atrous_iteration", "taa_band"):
         launches[name] = sharded_launches[name]
-    stress_launches = check_stress_path(stress)
+    stress_launches = phase("stress path", check_stress_path, stress)
     launches["intersect_clustered"] = stress_launches["intersect_clustered"]
-    check_moments_designs(moments_design_cases(stress))
+    phase("nested scene", check_nested_scene)
+    phase("K2 designs", lambda: check_moments_designs(moments_design_cases(stress)))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K6 also carries the yardstick bound that its earlier design was read against

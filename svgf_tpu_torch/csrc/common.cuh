@@ -7,6 +7,7 @@
 // double-then-float rounding that Python floats get in torch and JAX.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
@@ -18,6 +19,24 @@ constexpr float kInvalidDepth = 1e30f;
 
 __device__ __forceinline__ float load(const float* p, long i) { return p[i]; }
 __device__ __forceinline__ float load(const __half* p, long i) { return __half2float(p[i]); }
+// bf16 is f32 with its low 16 bits cut: widening it is exact.
+__device__ __forceinline__ float load(const __nv_bfloat16* p, long i) {
+  return __bfloat162float(p[i]);
+}
+
+// torch.minimum / torch.maximum (and amin / amax): NaN if either operand
+// is NaN, one PTX instruction each (min.NaN.f32 / max.NaN.f32, sm_80 and
+// later) where fminf / fmaxf would drop the NaN.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
 
 // torch.clamp(x, 0, 1): NaN passes through.
 __device__ __forceinline__ float clamp01(float x) { return x < 0.f ? 0.f : (x > 1.f ? 1.f : x); }

@@ -38,35 +38,33 @@
 //     a leaf costs no node fetch;
 //   * the walk tests both children of a record, goes to the nearer child
 //     that is hit and pushes the other with its entry distance on a
-//     per-thread stack of kStack entries; a popped entry whose entry
-//     distance is no longer below the best is skipped. Nearest first, the
-//     first hit found is usually the nearest, and the `tn < best` cull
-//     prunes the rest (the skip-link walk visits children in build order
-//     and prunes only after a hit in whichever subtree came first). The
-//     wrapper checks that the tree's depth fits the stack;
+//     per-thread stack; a popped entry whose entry distance is no longer
+//     below the best is skipped. Nearest first, the first hit found is
+//     usually the nearest, and the `tn < best` cull prunes the rest (the
+//     skip-link walk visits children in build order and prunes only after
+//     a hit in whichever subtree came first);
+//   * the walk pushes at most one entry for each level it descends, so a
+//     stack of the tree's depth (internal nodes on its longest root-to-leaf
+//     path) always suffices. The per-thread stack holds kStack = 64 entries
+//     (kernels/intersect.py BVH_STACK; the terrain's tree is 21 deep): the
+//     CUDA runtime reserves it for every thread the card holds (132 SMs x
+//     2,048 threads x 8 B an entry: 138 MB). A deeper tree runs the kSpill
+//     instantiation, which keeps the entries past the stack in a global
+//     scratch of (depth - kStack) entries a ray that the wrapper sizes from
+//     the depth ([entry][ray], so a warp's spills coalesce); only a ray
+//     whose stack grows that deep touches it;
 //   * torch.minimum/maximum's NaN rule is one PTX instruction each
 //     (min.NaN.f32 / max.NaN.f32, sm_80 and later) instead of two compares,
 //     an or and a select around fminf/fmaxf;
 //   * the winner's t/u/v are taken from one more test of its triangle after
 //     the walk and its ids from the packed record (intersect.cuh).
+#include "common.cuh"
 #include "intersect.cuh"
 
 namespace svgf {
 
 constexpr int kWalkThreads = 128;
-constexpr int kStack = 64;  // kernels/intersect.py BVH_STACK: the deepest tree the walk takes
-
-// torch.minimum / torch.maximum: NaN if either operand is NaN.
-__device__ __forceinline__ float nan_min(float a, float b) {
-  float d;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  float d;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
+constexpr int kStack = 64;  // entries of the per-thread stack
 
 // ray_aabb_comp (ops/geometry.py), axis by axis in its order: the entry t,
 // and in `hit` the plain walk's verdict against the best so far.
@@ -90,12 +88,15 @@ __device__ __forceinline__ float slab(float4 lo, float4 hi, float3 o, float3 inv
 
 // A record: (lo0.xyz, ref0), (hi0.xyz, ref1), (lo1.xyz, -), (hi1.xyz, -);
 // a reference >= 0 is a record, < 0 the soup column ~ref of a leaf.
+// kStack entries live in the thread's stack; with kSpill, entry e >= kStack
+// lives at spill[(e - kStack) * n_rays + ray] as (reference, entry t bits).
+template <bool kSpill>
 __global__ void __launch_bounds__(kWalkThreads)
 intersect_bvh_kernel(const float4* __restrict__ nodes, const float4* __restrict__ tris,
                      int only_instance, const float* __restrict__ ro,
                      const float* __restrict__ rd, const float* __restrict__ t0,
                      const bool* __restrict__ active, int n_rays, HitOut out,
-                     int* __restrict__ stats) {
+                     int* __restrict__ stats, int2* __restrict__ spill) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const float start = t0 ? t0[i] : kMaxLength;
@@ -122,9 +123,15 @@ intersect_bvh_kernel(const float4* __restrict__ nodes, const float4* __restrict_
     // the nearer child that is hit first; on equal entry, the first child
     const bool swap = h1 && (!h0 || tn1 < tn0);
     const int near = __float_as_int(swap ? hi0.w : lo0.w);
-    if (h0 && h1) {  // the wrapper's depth check keeps sp < kStack
-      stack_ref[sp] = __float_as_int(swap ? lo0.w : hi0.w);
-      stack_t[sp] = swap ? tn0 : tn1;
+    if (h0 && h1) {  // sp < the tree's depth: the stack, or past it the spill
+      const int ref = __float_as_int(swap ? lo0.w : hi0.w);
+      const float tn = swap ? tn0 : tn1;
+      if (!kSpill || sp < kStack) {
+        stack_ref[sp] = ref;
+        stack_t[sp] = tn;
+      } else {
+        spill[(long)(sp - kStack) * n_rays + i] = make_int2(ref, __float_as_int(tn));
+      }
       ++sp;
     }
     // the next record to visit: the near child, else the stack's top
@@ -135,7 +142,14 @@ intersect_bvh_kernel(const float4* __restrict__ nodes, const float4* __restrict_
       if (!have) {
         while (sp > 0) {
           --sp;
-          if (stack_t[sp] < best) {
+          if (kSpill && sp >= kStack) {
+            const int2 e = spill[(long)(sp - kStack) * n_rays + i];
+            if (__int_as_float(e.y) < best) {
+              next = e.x;
+              have = true;
+              break;
+            }
+          } else if (stack_t[sp] < best) {
             next = stack_ref[sp];
             have = true;
             break;
@@ -166,17 +180,30 @@ intersect_bvh_kernel(const float4* __restrict__ nodes, const float4* __restrict_
   }
 }
 
+template <bool kSpill>
+cudaError_t launch_bvh(const float4* nodes, const float4* tris, const float* ro, const float* rd,
+                       const float* t0, const bool* active, HitOut out, int* stats,
+                       int only_instance, int n_rays, int2* spill, cudaStream_t stream) {
+  const int blocks = (n_rays + kWalkThreads - 1) / kWalkThreads;
+  intersect_bvh_kernel<kSpill><<<blocks, kWalkThreads, 0, stream>>>(
+      nodes, tris, only_instance, ro, rd, t0, active, n_rays, out, stats, spill);
+  return cudaGetLastError();
+}
+
 }  // namespace svgf
 
+// `spill`: null for a tree no deeper than the stack, else the scratch of
+// (depth - kStack) entries a ray (kernels/intersect.py spill_entries).
 extern "C" int svgf_intersect_bvh(const float4* nodes, const float4* tris, const float* ro,
                                   const float* rd, const float* t0, const bool* active,
                                   float* dist, float* u, float* v, int* prim, int* inst, int* mat,
                                   int* col, int* stats, int only_instance, int n_rays,
-                                  void* stream) {
+                                  int2* spill, void* stream) {
   if (n_rays <= 0) return 0;
-  const int blocks = (n_rays + svgf::kWalkThreads - 1) / svgf::kWalkThreads;
-  svgf::intersect_bvh_kernel<<<blocks, svgf::kWalkThreads, 0, (cudaStream_t)stream>>>(
-      nodes, tris, only_instance, ro, rd, t0, active, n_rays,
-      svgf::HitOut{dist, u, v, prim, inst, mat, col}, stats);
-  return (int)cudaGetLastError();
+  const svgf::HitOut out{dist, u, v, prim, inst, mat, col};
+  return (int)(spill ? svgf::launch_bvh<true>(nodes, tris, ro, rd, t0, active, out, stats,
+                                              only_instance, n_rays, spill, (cudaStream_t)stream)
+                     : svgf::launch_bvh<false>(nodes, tris, ro, rd, t0, active, out, stats,
+                                               only_instance, n_rays, nullptr,
+                                               (cudaStream_t)stream));
 }

@@ -6,7 +6,7 @@
 // svgf_tpu_torch/render/svgf.py temporal_filter computes, on (H, W, C)
 // tensors: the previous frame is gathered at pixel + trunc(motion) with no
 // bound on the motion, and the previous-frame state is read at its stored
-// type (fp16 or fp32).
+// type (fp16, bf16 or fp32).
 //
 // K7 replaces svgf_tpu/kernels/temporal_pallas.py temporal_filter_pallas
 // on the row-sharded route; plain version svgf.temporal_filter_band. The
@@ -19,7 +19,8 @@
 // packed planes, no padding pass.
 //
 // Bound on the card: memory. A pixel reads 40 B of the current frame and
-// 28 B (fp16 state) of the previous one, and writes 29 B, with ~60 flops.
+// 28 B (fp16 or bf16 state) of the previous one, and writes 29 B, with ~60
+// flops.
 // One thread per pixel; neighbouring threads read neighbouring pixels, and
 // the reprojected reads stay coalesced where motion is smooth.
 #include "common.cuh"
@@ -139,5 +140,7 @@ cudaError_t launch_temporal(const float* cur, const float* depth, const float* n
 
 SVGF_TEMPORAL_ENTRY(svgf_temporal_f32, float)
 SVGF_TEMPORAL_ENTRY(svgf_temporal_f16, __half)
+SVGF_TEMPORAL_ENTRY(svgf_temporal_bf16, __nv_bfloat16)
 SVGF_TEMPORAL_BAND_ENTRY(svgf_temporal_band_f32, float)
 SVGF_TEMPORAL_BAND_ENTRY(svgf_temporal_band_f16, __half)
+SVGF_TEMPORAL_BAND_ENTRY(svgf_temporal_band_bf16, __nv_bfloat16)

@@ -30,18 +30,19 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# the suffixes of the entries that read the SVGF state at its stored type
+# (fp32, fp16, bf16); kernels/filter.py maps torch dtypes onto them
+STATE_TYPES = ("f32", "f16", "bf16")
 # every launcher takes (pointers..., ints/floats..., stream) and returns a cudaError_t
 SIGNATURES = {
-    "svgf_temporal_f32": [_P] * 15 + [_I, _I, _F, _F, _I, _P],
-    "svgf_temporal_f16": [_P] * 15 + [_I, _I, _F, _F, _I, _P],
-    "svgf_temporal_band_f32": [_P] * 15 + [_I, _I, _F, _F, _I] + [_I] * 6 + [_P],
-    "svgf_temporal_band_f16": [_P] * 15 + [_I, _I, _F, _F, _I] + [_I] * 6 + [_P],
+    **{f"svgf_temporal_{t}": [_P] * 15 + [_I, _I, _F, _F, _I, _P] for t in STATE_TYPES},
+    **{f"svgf_temporal_band_{t}": [_P] * 15 + [_I, _I, _F, _F, _I] + [_I] * 6 + [_P]
+       for t in STATE_TYPES},
     "svgf_moments": [_P] * 7 + [_I, _I, _F, _F, _I, _I, _P],
     "svgf_atrous_step": [_P] * 5 + [_I, _I, _I, _F, _F, _I] + [_I] * 4 + [_P],
-    "svgf_taa_f32": [_P] * 3 + [_I, _I, _P],
-    "svgf_taa_f16": [_P] * 3 + [_I, _I, _P],
+    **{f"svgf_taa_{t}": [_P] * 3 + [_I, _I, _P] for t in STATE_TYPES},
     "svgf_intersect_dense": [_P] * 12 + [_I, _I, _I, _I, _P],
-    "svgf_intersect_bvh": [_P] * 14 + [_I, _I, _P],
+    "svgf_intersect_bvh": [_P] * 14 + [_I, _I, _P, _P],
 }
 
 

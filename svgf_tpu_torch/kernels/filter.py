@@ -50,7 +50,9 @@ __all__ = ["LAUNCHES", "reset_launches", "temporal_filter", "filter_moments",
            "wavelet_filter", "taa", "temporal_filter_band", "filter_moments_band",
            "atrous_iteration", "taa_band"]
 
-_STATE_TYPES = {torch.float16: "f16", torch.float32: "f32"}
+# the state types the kernels read (the suffix of their entry points):
+# every state_dtype that render/pipeline.py STATE_DTYPES offers
+_STATE_TYPES = {torch.float32: "f32", torch.float16: "f16", torch.bfloat16: "bf16"}
 
 
 def _normal_squarings(phi_normal: float) -> int:
@@ -75,11 +77,12 @@ def _launch_temporal(entry: str, current, prev_color, gbuf: GBuffer, prev_gbuf: 
                      normal_threshold: float, history_base_length: int, prev_rows: int,
                      *band) -> TemporalResult:
     """Check the arguments of K1 or K7 (previous state of `prev_rows` rows)
-    and launch `entry`_f16 or _f32; `band` are K7's extra ints."""
+    and launch `entry`_f32, _f16 or _bf16 by the state's type; `band` are
+    K7's extra ints."""
     h, w = current.shape[:2]
     st = prev_color.dtype
     if st not in _STATE_TYPES:
-        raise ValueError(f"prev_color: dtype {st}, expected float16 or float32")
+        raise ValueError(f"prev_color: dtype {st}, expected one of {tuple(_STATE_TYPES)}")
     check(current, "current", (h, w, 3), (torch.float32,))
     _check_gbuffer(gbuf, h, w, ("depth", "normal", "instance", "motion"))
     check(prev_color, "prev_color", (prev_rows, w, 4), (st,))
@@ -110,12 +113,12 @@ def temporal_filter(current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer, prev
                     prev_history, depth_threshold: float, normal_threshold: float,
                     history_base_length: int) -> TemporalResult:
     """K1 (csrc/temporal.cu); plain version svgf.temporal_filter. The
-    previous-frame state is fp16 or fp32, one type for all of it.
+    previous-frame state is fp16, bf16 or fp32, one type for all of it.
 
     Replaces svgf_tpu/kernels/planar.py temporal_planar. Memory-bound:
-    ~68 B read (40 B current frame, 28 B fp16 state) and 29 B written per
-    pixel; one thread per pixel reads the fp16 state where it lies, with
-    no motion bound and no packed planes."""
+    ~68 B read (40 B current frame, 28 B fp16 or bf16 state) and 29 B
+    written per pixel; one thread per pixel reads the state where it lies,
+    with no motion bound and no packed planes."""
     args = (current, prev_color, gbuf, prev_gbuf, prev_moments, prev_history)
     if on_cpu(*_temporal_tensors(*args)):
         return svgf.temporal_filter(*args, depth_threshold, normal_threshold,
@@ -133,7 +136,7 @@ def temporal_filter_band(current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer,
     svgf.temporal_filter_band. `current` and `gbuf` are a band of Hs rows
     whose first row is global `row0` of an `h_total`-row image; the prev_*
     state is the window of Hs + 2*BOUND_Y rows from global row0 - BOUND_Y,
-    fp16 or fp32, zero outside the image. Motion beyond (BOUND_Y, BOUND_X)
+    fp16, bf16 or fp32, zero outside the image. Motion beyond (BOUND_Y, BOUND_X)
     is a disocclusion.
 
     Replaces svgf_tpu/kernels/temporal_pallas.py temporal_filter_pallas
@@ -295,10 +298,17 @@ def atrous_iteration(img, gbuf: GBuffer, step: int, phi_colour: float, phi_norma
     return out
 
 
+# csrc/taa.cu's tile (kRows, kCols): rows x columns a block of 256 threads stages
+TAA_TILE = (16, 32)
+
+
 def _launch_taa(filtered, history):
     h, w = filtered.shape[:2]
     check(filtered, "filtered", (h, w, 4), (torch.float32,))
     check(history, "history", (h, w, 4), tuple(_STATE_TYPES))
+    # the kernel reads a pixel's colour as one float4 and its history in one load
+    _check_aligned(filtered, "filtered", 16)
+    _check_aligned(history, "history", 4 * history.element_size())
     out = torch.empty((h, w, 4), dtype=torch.float32, device=filtered.device)
     fn = getattr(library(), f"svgf_taa_{_STATE_TYPES[history.dtype]}")
     launch(fn, filtered.device, ptr(filtered), ptr(history), ptr(out), h, w)
@@ -306,11 +316,14 @@ def _launch_taa(filtered, history):
 
 
 def taa(filtered, history):
-    """K4 (csrc/taa.cu); plain version svgf.taa. `history` is fp16 or fp32.
+    """K4 (csrc/taa.cu); plain version svgf.taa. `history` is fp16, bf16
+    or fp32.
 
-    Replaces svgf_tpu/kernels/planar.py taa_planar. Memory-bound: 9 taps
-    of 16 B (shared through L1) and 8 B of fp16 history read, 16 B written
-    per pixel; one thread per pixel, edge-clamped taps."""
+    Replaces svgf_tpu/kernels/planar.py taa_planar. Memory-bound: 16 B of
+    colour and 8 B of fp16 or bf16 history read, 16 B written per pixel.
+    A block stages its TAA_TILE and the 1-pixel edge-clamped halo in
+    shared memory, each pixel encoded to PAL-YUV once, and its taps read
+    the encoded values there."""
     if on_cpu(filtered, history):
         return svgf.taa(filtered, history)
     out = _launch_taa(filtered, history)

@@ -45,9 +45,15 @@ def _sources(scene):
             scene.wbvh_bounds6, scene.wbvh_skip, scene.wbvh_leaf_tri)
 
 
-# entries of csrc/intersect_clustered.cu's per-thread stack (kStack): the
-# deepest scene BVH K6 walks
+# entries of csrc/intersect_clustered.cu's per-thread stack (kStack); a
+# deeper scene BVH spills the entries past it to a global scratch
 BVH_STACK = 64
+
+
+def spill_entries(depth: int) -> int:
+    """The scratch entries a ray K6 needs past its stack for a scene BVH
+    of `depth`: 0 where the stack holds the depth."""
+    return max(depth - BVH_STACK, 0)
 
 
 class ChildPairBVH(NamedTuple):
@@ -58,7 +64,7 @@ class ChildPairBVH(NamedTuple):
     a leaf's soup column); record 0 holds the root as its first child and
     an empty NaN box, which no ray hits, as its second. depth: internal
     nodes on the longest root-to-leaf path, the most entries the walk's
-    stack can hold."""
+    stack can hold (`spill_entries`)."""
 
     nodes: torch.Tensor
     depth: int
@@ -175,18 +181,19 @@ def bvh_hit(scene, ro, rd, t0, act, only_instance=None, with_col: bool = False,
     """Launch K6 on prepared rays (`_rays`); returns (the Hit, the winning
     column as dense_hit's, per-ray [records visited, triangles tested]
     (R, 2) i32 or None unless `stats`). Raises for a scene without a scene
-    BVH or with one deeper than the kernel's stack."""
+    BVH. A tree deeper than the kernel's stack gets a scratch of
+    `spill_entries(depth)` entries a ray."""
     tris, bvh = packed_scene(scene)
     if bvh is None:
         raise ValueError("the scene has no scene BVH: K6 takes scenes over DENSE_MAX_TRIS")
-    if bvh.depth > BVH_STACK:
-        raise ValueError(f"scene BVH depth {bvh.depth} exceeds K6's stack of {BVH_STACK}")
+    extra = spill_entries(bvh.depth)
     R, dev = ro.shape[0], ro.device
     hit, col = _empty_hit(R, dev, with_col)
     st = torch.empty((R, 2), dtype=torch.int32, device=dev) if stats else None
+    spill = torch.empty((extra, R, 2), dtype=torch.int32, device=dev) if extra else None
     launch(library().svgf_intersect_bvh, dev, ptr(bvh.nodes), ptr(tris), ptr(ro), ptr(rd),
            *map(_ptr_or_null, (t0, act)), *map(ptr, hit), *map(_ptr_or_null, (col, st)),
-           -1 if only_instance is None else int(only_instance), R)
+           -1 if only_instance is None else int(only_instance), R, _ptr_or_null(spill))
     LAUNCHES["intersect_clustered"] += 1
     return hit, col, st
 

@@ -20,7 +20,11 @@ scene BVH into child-pair records and on a nearest-first walk over them
 finding the skip-link walk's hits; both are checked here on the stress
 scene, the walk through a plain torch model of the kernel's. Both
 kernels' wrappers take the kernel's Hit unless autograd needs the torch
-recompute of its winner.
+recompute of its winner. On the nested scene (scenes/nested.py, 100
+instances nested one in the next: a scene BVH 79 levels deep, whose rays'
+walks hold more than the terrain's 64-entry stack) the port's walk holds
+to svgf_tpu's, and the model's stack to the tree's depth, from which the
+wrapper sizes the scratch past K6's stack.
 """
 
 import dataclasses
@@ -37,7 +41,14 @@ from svgf_tpu.ops.intersect import intersect_scene as j_intersect_scene
 from svgf_tpu.ops.intersect import set_pallas_mode
 from svgf_tpu.ops.intersect import traverse_scene_bvh as j_traverse
 from svgf_tpu.render.gbuffer import camera_rays as j_camera_rays
+from svgf_tpu.core.camera import Camera as JCamera
+from svgf_tpu.core.camera import look_at_frame as j_look_at_frame
+from svgf_tpu.core.scene import Instance as JInstance
+from svgf_tpu.core.scene import Material as JMaterial
+from svgf_tpu.core.scene import Scene as JScene
 from svgf_tpu.scenes import cornell_box as j_cornell
+from svgf_tpu.scenes.default_scene import _plane as j_plane
+from svgf_tpu.scenes.stress import heightfield_shape as j_heightfield_shape
 from svgf_tpu.scenes.stress import stress_scene as j_stress
 from svgf_tpu_torch import convert
 from svgf_tpu_torch.core.scene import SceneArrays, SceneMeta
@@ -47,6 +58,7 @@ from svgf_tpu_torch.ops.intersect import (
     _walk_scene_bvh, hit_from_winner, intersect_dense, intersect_scene, start_dist,
     traverse_scene_bvh,
 )
+from svgf_tpu_torch.scenes import nested
 from svgf_tpu_torch.scenes.stress import stress_scene
 
 
@@ -435,7 +447,8 @@ def _nearest_first_walk(bvh, ta, ro, rd, t0, active=None):
     the nearer one hit visited next and the other pushed with its entry
     distance, a leaf's triangle tested where the walk reaches it, and a
     popped entry skipped once the best is below it; on equal t the lower
-    column. Returns (best t, winning column or -1, records visited)."""
+    column. Returns (best t, winning column or -1, records visited, the
+    most stack entries the lane held at once)."""
     R = ro.shape[0]
     refs = bvh.nodes.view(torch.int32).long()
     roc, rdc = tuple(ro.unbind(1)), tuple(rd.unbind(1))
@@ -445,6 +458,7 @@ def _nearest_first_walk(bvh, ta, ro, rd, t0, active=None):
     stack_ref = torch.zeros((R, bvh.depth + 1), dtype=torch.long)
     stack_t = torch.zeros((R, bvh.depth + 1))
     sp = torch.zeros((R,), dtype=torch.long)
+    deepest = torch.zeros((R,), dtype=torch.long)
     node = torch.zeros((R,), dtype=torch.long)
     live = torch.ones((R,), dtype=torch.bool) if active is None else active.clone()
     visits = live.long()
@@ -460,6 +474,7 @@ def _nearest_first_walk(bvh, ta, ro, rd, t0, active=None):
         stack_ref[lanes, sp] = torch.where(push, torch.where(swap, ref0, ref1), stack_ref[lanes, sp])
         stack_t[lanes, sp] = torch.where(push, torch.where(swap, tn0, tn1), stack_t[lanes, sp])
         sp = sp + push
+        deepest = torch.maximum(deepest, sp)
         nxt = torch.where(swap, ref1, ref0)
         have = h0 | h1
         while True:
@@ -483,7 +498,7 @@ def _nearest_first_walk(bvh, ta, ro, rd, t0, active=None):
         live = live & have
         node = torch.where(live, nxt, node)
         visits = visits + live
-    return best, col, visits
+    return best, col, visits, deepest
 
 
 @pytest.mark.parametrize("rays", ["camera", "scrambled", "scrambled, active + tmax"])
@@ -502,7 +517,7 @@ def test_nearest_first_walk_finds_the_skip_link_walks_hits(stress, stress_rays, 
         tmax = _t(rng.uniform(0.5, 3.0, R).astype(np.float32))
     t0 = start_dist(tmax, R, "cpu")
     want_t, want_col = _walk_scene_bvh(ta, ro, rd, t0, active, None)
-    got_t, got_col, visits = _nearest_first_walk(KI.child_pair_bvh(ta), ta, ro, rd, t0, active)
+    got_t, got_col, visits, _ = _nearest_first_walk(KI.child_pair_bvh(ta), ta, ro, rd, t0, active)
     assert bool((want_col >= 0).any())
     assert torch.equal(got_col >= 0, want_col >= 0)
     differ = got_col != want_col
@@ -547,3 +562,108 @@ def test_wrapper_recomputes_only_when_autograd_needs_it(monkeypatch, cornell, st
     with torch.no_grad():
         wrapper(ta, g, rd)
     assert calls == [False, True, False]
+
+
+# ---------------------------------------------------------------------------
+# a deep scene BVH: K6's stack from the tree's depth
+# ---------------------------------------------------------------------------
+
+
+def _j_nested_scene(n=100, scale=1.05, aspect=16.0 / 9.0):
+    """scenes/nested.py nested_scene over svgf_tpu's host classes."""
+    scene = JScene()
+    scene.shapes.append(j_heightfield_shape(11, extent=1.0))
+    scene.shapes.append(j_plane())
+    scene.materials.append(JMaterial(colour=(0.65, 0.62, 0.58), roughness=0.8))
+    scene.materials.append(JMaterial(emission=(30.0, 30.0, 30.0)))
+    for k in range(n):
+        t = np.eye(4, dtype=np.float32)
+        t[0, 0] = t[2, 2] = scale ** k
+        t[1, 3] = 0.01 * k
+        scene.instances.append(JInstance(shape=0, material=0, transform=t, name=f"sheet{k}"))
+    light_t = np.diag([0.8, 1.0, 0.8, 1.0]).astype(np.float32)
+    light_t[1, 3] = -0.7
+    scene.instances.append(JInstance(shape=1, material=1, transform=light_t, name="light"))
+    scene.cameras.append(JCamera(frame=j_look_at_frame(eye=list(nested.EYE),
+                                                       target=list(nested.TARGET)),
+                                 fov=100.0, aspect=aspect))
+    return scene
+
+
+@pytest.fixture(scope="module")
+def nested_scene():
+    """The nested scene flattened by both packages, each with its NumPy
+    BVH build, and 6 x 10 camera rays and 64 seeded rays from below the nest,
+    up into it (each walk takes hundreds of steps here: few rays)."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("SVGF_NATIVE", "0")
+    try:
+        ja = _j_nested_scene().flatten()
+    finally:
+        mp.undo()
+    ta = nested.nested_scene().flatten(device="cpu")
+    ro, rd = jax.jit(lambda a: j_camera_rays(a.cam_frame[0], a.cam_proj[0], 6, 10))(ja)
+    rng = np.random.default_rng(8)
+    n = 64
+    ro2 = rng.uniform((-1.0, -0.6, -1.0), (1.0, -0.2, 1.0), (n, 3)).astype(np.float32)
+    rd2 = rng.standard_normal((n, 3))
+    rd2[:, 1] = np.abs(rd2[:, 1]) + 0.2
+    rd2 = (rd2 / np.linalg.norm(rd2, axis=-1, keepdims=True)).astype(np.float32)
+    rays = np.concatenate([np.array(ro), ro2]), np.concatenate([np.array(rd), rd2])
+    return ja, ta, rays
+
+
+def test_nested_scene_walk_matches_jax(nested_scene):
+    """The port's scene-BVH walk against svgf_tpu's on the nested scene,
+    whose tree is 79 levels deep: the same arrays bit for bit, the same
+    hits and winners, t to 1e-5; the camera sees many sheets."""
+    ja, ta, (ro, rd) = nested_scene
+    want_arrays = jax.tree.map(np.asarray, ja)
+    for name in ("world_tris9", "wbvh_bounds6", "wbvh_skip", "wbvh_leaf_tri"):
+        np.testing.assert_array_equal(getattr(ta, name).numpy(), getattr(want_arrays, name),
+                                      err_msg=name)
+    assert ta.meta.has_scene_bvh and ta.meta.n_world_tris == 20002
+    R = ro.shape[0]
+    comp = lambda x: (x[:, 0], x[:, 1], x[:, 2])
+    want = jax.jit(lambda a, o, d: j_traverse(a, comp(o), comp(d), JHit.none((R,)),
+                                               jnp.ones((R,), bool)))(
+        ja, jnp.asarray(ro), jnp.asarray(rd))
+    got = traverse_scene_bvh(ta, _t(ro), _t(rd))
+    hit = _np(want.dist) < 1e29
+    np.testing.assert_array_equal(_np(got.dist) < 1e29, hit)
+    assert hit.mean() > 0.9
+    for f in ("prim", "instance", "material"):
+        np.testing.assert_array_equal(_np(getattr(got, f)), _np(getattr(want, f)), err_msg=f)
+    np.testing.assert_allclose(_np(got.dist), _np(want.dist), rtol=1e-5, atol=1e-5)
+    assert len(set(_np(got.instance)[:60][hit[:60]].tolist())) >= 20
+
+
+def test_nearest_first_walk_stack_fits_the_depth(nested_scene):
+    """K6's premise on a deep tree: nearest child first, a walk pushes at
+    most one entry for each level it descends, so no lane ever holds more
+    than the tree's depth, what K6's 64-entry stack and its scratch of
+    spill_entries(depth) = 15 entries a ray hold here. These rays start
+    inside many nested boxes and hold more than the 64 entries at once:
+    the nested scene takes K6's spill on its own route. The walk finds the
+    skip-link walk's winners."""
+    _, ta, (ro, rd) = nested_scene
+    ro, rd = _t(ro), _t(rd)
+    bvh = KI.child_pair_bvh(ta)
+    assert bvh.depth == 79 and KI.spill_entries(bvh.depth) == 15
+    t0 = start_dist(None, ro.shape[0], "cpu")
+    want_t, want_col = _walk_scene_bvh(ta, ro, rd, t0, None, None)
+    got_t, got_col, visits, deepest = _nearest_first_walk(bvh, ta, ro, rd, t0)
+    assert int(deepest.max()) <= bvh.depth
+    assert int(deepest.max()) > KI.BVH_STACK
+    assert torch.equal(got_col >= 0, want_col >= 0) and torch.equal(got_t, want_t)
+    differ = got_col != want_col
+    assert float(differ.float().mean()) <= 1e-2
+    assert int(visits.max()) > 0
+
+
+@pytest.mark.parametrize("depth,entries", [(1, 0), (21, 0), (64, 0), (65, 1), (79, 15),
+                                           (269, 205)])
+def test_spill_entries(depth, entries):
+    """The scratch entries a ray past K6's 64-entry stack: none where the
+    stack holds the tree's depth, else the depth's excess."""
+    assert KI.spill_entries(depth) == entries

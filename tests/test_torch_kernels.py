@@ -256,3 +256,16 @@ def test_library_path_is_keyed_by_the_sources():
     assert len(sorted(build.CSRC.glob("*.cu"))) == 6   # K7 is temporal.cu's band entry
     for name in build.SIGNATURES:
         assert any(name in src.read_text() for src in build.CSRC.glob("*.cu")), name
+
+
+@pytest.mark.parametrize("state_dtype", sorted(pipeline.STATE_DTYPES))
+def test_every_state_dtype_has_kernel_entries(state_dtype):
+    """Every state_dtype a RenderConfig offers (render/pipeline.py
+    STATE_DTYPES) is one the filter wrappers take, with an entry of K1,
+    K7 and K4/K10 in the kernel library for it: the kernel route renders
+    whatever state the plain route renders."""
+    suffix = K._STATE_TYPES[pipeline.STATE_DTYPES[state_dtype]]
+    sources = "".join(src.read_text() for src in build.CSRC.glob("*.cu"))
+    for entry in ("svgf_temporal", "svgf_temporal_band", "svgf_taa"):
+        name = f"{entry}_{suffix}"
+        assert name in build.SIGNATURES and f"({name}," in sources, name

@@ -1,7 +1,8 @@
 """The port's Renderer against svgf_tpu's: Cornell at 32x24 for three frames
 with a small camera orbit before each, fp16 state, on the same scene data
 (convert.py). The port runs its plain versions on the CPU; svgf_tpu runs
-render_frame with use_pallas="off".
+render_frame with use_pallas="off". The same frames again with bfloat16
+state.
 
 A large scene goes the same way: one frame of stress_scene(n=96) (18,052
 world triangles: the BLAS-leaf soup, the scene-BVH walk and the 64x64
@@ -18,6 +19,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from svgf_tpu.config import RenderConfig, SVGFConfig, TracingConfig
 from svgf_tpu.core.camera import orbit_frame
@@ -42,10 +44,9 @@ def orbit(f):
     return orbit_frame([0.0, 0.0, 0.0], 3.4, theta=0.013 + 0.03 * f, phi=0.011)
 
 
-@pytest.fixture(scope="module")
-def frames():
-    jr = JRenderer(j_cornell(aspect=W / H), CONFIG)
-    tr = Renderer(cornell_box(aspect=W / H), CONFIG, device="cpu")
+def _run_frames(config):
+    jr = JRenderer(j_cornell(aspect=W / H), config)
+    tr = Renderer(cornell_box(aspect=W / H), config, device="cpu")
     tr.arrays = convert.scene_arrays(jax.tree.map(np.asarray, jr.arrays), device="cpu")
     out = []
     for f in range(FRAMES):
@@ -55,15 +56,25 @@ def frames():
     return out
 
 
+@pytest.fixture(scope="module")
+def frames():
+    return _run_frames(CONFIG)
+
+
+@pytest.fixture(scope="module")
+def frames_bf16():
+    """The same frames with bfloat16 state ("the TPU-native choice" of
+    svgf_tpu/config.py), which the kernel route reads as the fp16 state."""
+    return _run_frames(dataclasses.replace(CONFIG, state_dtype="bfloat16"))
+
+
 def assert_close(name, got, want, mean_tol, max_tol):
     d = np.abs(got.numpy().astype(np.float64) - want.astype(np.float64))
     assert d.mean() < mean_tol, (name, d.mean())
     assert (d > max_tol).mean() == 0.0, (name, d.max())
 
 
-@pytest.mark.parametrize("frame", range(FRAMES))
-def test_frame_matches_jax(frames, frame):
-    want, got, _ = frames[frame]
+def _assert_frame_matches(want, got):
     np.testing.assert_allclose(got.radiance.numpy(), want.radiance, atol=1e-4)
     for tap in ("temporal", "moments_filtered", "atrous"):
         assert_close(tap, getattr(got, tap), getattr(want, tap), 1e-4, 2e-2)
@@ -73,6 +84,19 @@ def test_frame_matches_jax(frames, frame):
         np.testing.assert_allclose(float(getattr(got.metrics, f)), float(getattr(want.metrics, f)),
                                    atol=1e-3, err_msg=f)
     assert int(got.metrics.rays_traced) == int(want.metrics.rays_traced)
+
+
+@pytest.mark.parametrize("frame", range(FRAMES))
+def test_frame_matches_jax(frames, frame):
+    _assert_frame_matches(*frames[frame][:2])
+
+
+@pytest.mark.parametrize("frame", range(FRAMES))
+def test_bf16_frame_matches_jax(frames_bf16, frame):
+    want, got, state = frames_bf16[frame]
+    _assert_frame_matches(want, got)
+    for t in (state.color, state.moments, state.taa_history, state.gbuffer.depth):
+        assert t.dtype == torch.bfloat16
 
 
 def test_state_is_fp16_and_advances(frames):

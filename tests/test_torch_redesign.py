@@ -1,5 +1,6 @@
 """What the H100 designs of K5 (csrc/intersect_dense.cu), K3
-(csrc/atrous.cu) and K2 (csrc/moments.cu) rest on, checked on the CPU;
+(csrc/atrous.cu), K2 (csrc/moments.cu) and K4/K10 (csrc/taa.cu) rest on,
+checked on the CPU;
 the kernels themselves run only on the card, where chip_smoke.py holds
 each against its plain version. (K6's premises are checked in
 tests/test_torch_intersect.py, beside its stress scene.)
@@ -9,7 +10,8 @@ winner's ids, and the wrapper recomputes t/u/v in torch only when autograd
 needs them. K3 filters a step of width s as s^2 step-1 filters, one on
 each lattice img[a::s, b::s], and launches one block per lattice tile. K2
 gates each block on its fallback pixels and compacts them into a list
-that its first threads filter.
+that its first threads filter. K4 stages a tile and its edge-clamped halo,
+each pixel encoded to PAL-YUV once, and reads its taps there.
 """
 
 import dataclasses
@@ -20,9 +22,10 @@ import torch
 
 from svgf_tpu_torch.config import SVGFConfig
 from svgf_tpu_torch.kernels.filter import (
-    ATROUS_ROWS_PER_THREAD, ATROUS_TILE, MOMENTS_TILE, atrous_lattice_grid,
+    ATROUS_ROWS_PER_THREAD, ATROUS_TILE, MOMENTS_TILE, TAA_TILE, atrous_lattice_grid,
 )
 from svgf_tpu_torch.kernels.intersect import needs_recompute, packed_scene
+from svgf_tpu_torch.render import svgf as P
 from svgf_tpu_torch.render.svgf import atrous_iteration
 from svgf_tpu_torch.render.types import GBuffer
 from svgf_tpu_torch.scenes.cornell import cornell_box
@@ -234,3 +237,87 @@ def test_moments_blocks_list_each_fallback_pixel_once(h, w, layout):
     assert np.array_equal(n > 0, has)
     if layout == "bands" and h > 100:   # the banded frame gates whole blocks
         assert 0.2 < float(has.mean()) < 0.9
+
+
+# taps of csrc/taa.cu in its order: the cross, then the diagonals
+TAA_TAPS = ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1), (-1, -1))
+
+
+def staged_taa(filtered, history):
+    """A torch model of csrc/taa.cu: block (by, bx) stages the TAA_TILE of
+    rows x cols pixels from (by * rows, bx * cols) and its 1-pixel halo at
+    edge-clamped coordinates, each staged pixel clamped to [0, 1] and
+    encoded to PAL-YUV once; thread (ly, lx) of 8 x 32 takes the tile's
+    pixels (ly + 8 j, lx + 32 i) inside the image and folds its 9 staged
+    taps in the kernel's order (NaN-propagating min and max, as the
+    kernel's min.NaN/max.NaN and torch's amin/minimum).
+    The rest of a pixel's arithmetic, on its own value and history, is the
+    plain version's, here in the frame's layout (torch's CPU pow rounds by
+    lane). Returns (the output, how many threads wrote each pixel)."""
+    rows, cols = TAA_TILE
+    h, w = filtered.shape[:2]
+    gy, gx = -(-h // rows), -(-w // cols)
+    rr = torch.clamp(torch.arange(gy)[:, None] * rows - 1 + torch.arange(rows + 2), 0, h - 1)
+    cc = torch.clamp(torch.arange(gx)[:, None] * cols - 1 + torch.arange(cols + 2), 0, w - 1)
+    staged = filtered[rr[:, None, :, None], cc[None, :, None, :], :3]   # (gy, gx, rows+2, cols+2, 3)
+    enc = P._encode_pal_yuv(P.load01(staged))
+    ly, lx, j, i = torch.meshgrid(torch.arange(8), torch.arange(32), torch.arange(rows // 8),
+                                  torch.arange(cols // 32), indexing="ij")
+    ty, tx = (ly + 8 * j).flatten(), (lx + 32 * i).flatten()
+    by, bx = (t.flatten() for t in torch.meshgrid(torch.arange(gy), torch.arange(gx), indexing="ij"))
+    by, bx, ty, tx = by[:, None], bx[:, None], ty[None], tx[None]
+    r, c = by * rows + ty, bx * cols + tx
+    live = (r < h) & (c < w)
+    tap = lambda dy, dx: enc[by, bx, ty + 1 + dy, tx + 1 + dx][live]
+    min_c = max_c = tap(0, 0)
+    for dy, dx in TAA_TAPS[:4]:
+        min_c, max_c = torch.minimum(min_c, tap(dy, dx)), torch.maximum(max_c, tap(dy, dx))
+    min_r = max_r = tap(*TAA_TAPS[4])
+    for dy, dx in TAA_TAPS[5:]:
+        min_r, max_r = torch.minimum(min_r, tap(dy, dx)), torch.maximum(max_r, tap(dy, dx))
+    pix = r[live] * w + c[live]
+    box = torch.zeros((4, h * w, 3))
+    box[:, pix] = torch.stack([min_c, max_c, min_r, max_r])
+    min_c, max_c, min_r, max_r = box.view(4, h, w, 3)
+
+    last = P.load01(history)
+    in0 = P.load01(filtered)[..., :3]
+    mix_rate = torch.clamp_max(last[..., 3], 0.5)
+    aa = last[..., :3]
+    aa = aa * aa + (in0 * in0 - aa * aa) * mix_rate[..., None]
+    aa = torch.sqrt(torch.clamp_min(aa, 1e-12))
+    lo = 0.5 * min_c + 0.5 * torch.minimum(min_r, min_c)
+    hi = 0.5 * max_c + 0.5 * torch.maximum(max_r, max_c)
+    rgb = P._decode_pal_yuv(torch.minimum(torch.maximum(P._encode_pal_yuv(aa), lo), hi))
+    rgb = torch.where(torch.isfinite(rgb).all(-1, keepdim=True), rgb, 0.0)
+    out = P.store01(torch.cat([P.to_srgb(rgb), torch.ones((h, w, 1))], dim=-1))
+    return out, torch.bincount(pix, minlength=h * w).view(h, w)
+
+
+def _edge_band(x, r0, r1):
+    """Rows [r0 - 1, r1 + 1) of x, the image's edge row beyond it: the
+    extended band K10 gets on the sharded route (parallel/sharded.py)."""
+    idx = torch.clamp(torch.arange(r0 - 1, r1 + 1), 0, x.shape[0] - 1)
+    return x[idx].contiguous()
+
+
+@pytest.mark.parametrize("case", ["frame 23x37, fp16 history", "band [0, 8), bf16 history",
+                                  "band [8, 16), fp32 history"])
+def test_staged_taa_equals_the_plain_taa(case):
+    """K4's staged tile (staged_taa, a model of the kernel's index
+    arithmetic) equals svgf.taa bit for bit on a frame of odd size, smaller
+    than a tile in one direction, and on K10's edge-extended bands, each
+    pixel written by one thread. The taps read each staged pixel's one
+    encode where the plain version encodes each tap, in the same order;
+    min and max are exact, so the bits agree."""
+    rng = np.random.default_rng(3)
+    h, w = 23, 37
+    filtered = torch.as_tensor(rng.uniform(-0.2, 1.2, (h, w, 4)), dtype=torch.float32)
+    dtype = {"fp16": torch.float16, "bf16": torch.bfloat16, "fp32": torch.float32}[case.split()[-2]]
+    history = torch.as_tensor(rng.uniform(-0.1, 1.1, (h, w, 4)), dtype=torch.float32).to(dtype)
+    if case.startswith("band"):
+        r0, r1 = (int(x) for x in case[6:case.index(")")].split(", "))
+        filtered, history = _edge_band(filtered, r0, r1), _edge_band(history, r0, r1)
+    got, writes = staged_taa(filtered, history)
+    assert bool((writes == 1).all())
+    assert torch.equal(got, P.taa(filtered, history))
