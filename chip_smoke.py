@@ -71,7 +71,22 @@ Phases, each failing loudly (no phase catches an exception):
      ray, Mrays/s and K6 alone; FRAMES 1080p frames through the kernels
      with launch counts, and a frame of kernels against plain at 480x270
      with one bounce (the plain walk is a host loop of thousands of steps
-     on this scene).
+     on this scene);
+ 12. materials: Renderer.step on the materials scene (scenes/materials.py:
+     PBR, mirror, glass and volumetric blocks, textured and normal-mapped
+     walls with alpha, an environment) at 1920x1080 through K1-K5 for
+     FRAMES frames of the Cornell orbit, with the launch counts that
+     expected_launches derives from its SceneMeta (K5 also once per area
+     light, bounce and chunk for the scatter event's only_instance
+     re-trace), the image, frame FRAMES against the plain route's; prints
+     frame and stage ms, rays traced, the K5 lanes a call, peak memory and
+     a profiled frame beside the MATTE Cornell frame's; K5 alone on the
+     frame's 3R-lane call and its only_instance call, with their bounds.
+     Then the terrain with its material made PBR (the same arrays, the
+     material fields replaced), whose bounces add a third segment: FRAMES
+     1080p frames through K1-K4 and K6 with launch counts, K6 alone on its
+     3R-lane call with its bound, and one frame of kernels against plain at
+     480x270.
 Every kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its FP32 operations on these inputs over 67 TFLOP/s
 (the H100 SXM's published peaks at 700 W).
@@ -89,6 +104,7 @@ c = u.module_from_spec(s); s.loader.exec_module(c); c.compare_times()"
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -107,6 +123,7 @@ LATER_FRAME = 16
 # 2 lane chunks: the 1080p frame's trace in two halves (PERF.md section 5).
 TRACE_CHUNKS = 2
 TIMED_ITERS = 20
+PROFILE_SESSIONS = 10         # the most profiler sessions a measurement tries (profiled)
 STRESS_N = 230                # stress_scene(n=230): 104,884 world triangles
 SMALL_H, SMALL_W = 270, 480   # the stress path's kernels-vs-plain frames
 SCRAMBLED = 65536
@@ -195,8 +212,10 @@ def profiled(fn, iters: int, cpu: bool = False, per_call: int | None = None):
     saw, the launches the wrappers counted, or `per_call` a call of fn for
     a launcher that no wrapper counts). The profiler now and then
     drops kernel records of a session, so a session that saw fewer svgf::
-    kernels than were launched is run again, three times at most; the one
-    that saw the most stands, and its shortfall is printed."""
+    kernels than were launched is run again, three times at most, and up
+    to PROFILE_SESSIONS times while no session has seen one (a session
+    that lost every record happened on the card); the one that saw the
+    most stands, and its shortfall is printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -204,7 +223,9 @@ def profiled(fn, iters: int, cpu: bool = False, per_call: int | None = None):
 
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     best = None
-    for _ in range(3):
+    for session in range(PROFILE_SESSIONS):
+        if session >= 3 and best[2] > 0:
+            break
         before = sum(LAUNCHES.values())
         with profile(activities=activities) as prof:
             for _ in range(iters):
@@ -898,6 +919,16 @@ def device_kernels(fn, calls: int = 10) -> tuple[list, int]:
     return [e.name for e in events], launched
 
 
+def dense_call_bound(ro, rd, active, out, n_tris: int) -> dict:
+    """K5's bound on one call: rays, mask and Hit once, the swept
+    triangles' records once; OPS_MT a ray and swept triangle of the active
+    rays, OPS_RECOMPUTE a ray."""
+    n_active = ro.shape[0] if active is None else int(active.sum())
+    extra = () if active is None else (active,)
+    return bound(nbytes(ro, rd, *extra, *out) + n_tris * (9 + 3) * 4,
+                 n_active * n_tris * OPS_MT + ro.shape[0] * OPS_RECOMPUTE)
+
+
 def check_dense_kernel() -> dict:
     """K5 against intersect_dense on the 1080p Cornell box. Bars: hit/miss
     sets and winners agree on >= 99.99% of the active lanes (a ray through
@@ -978,10 +1009,7 @@ def check_dense_kernel() -> dict:
     n_active = int(active.sum())
     log(f"  the kernel alone (profiler) {alone:.4f} ms; {n_active} active rays, "
         f"{R / (t['ms'] * 1e3):.1f} Mrays/s through the wrapper")
-    out = kernel()
-    scene_bytes = n_tris * (9 + 3) * 4
-    b = bound(nbytes(ro_s, rd_s, active, *out) + scene_bytes,
-              n_active * n_tris * OPS_MT + R * OPS_RECOMPUTE)
+    b = dense_call_bound(ro_s, rd_s, active, kernel(), n_tris)
     log(f"  bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bound_bytes']} B, {b['bound_ops']} ops)")
     # no single PyTorch call computes a nearest ray-triangle hit
     return {"max_abs_err": max(errs), **t, **b, "library_ms": None, "alone_ms": alone}
@@ -1218,16 +1246,22 @@ def run_frames(scene, orbit, h, w, use_pallas: str, chunks: int, frames: int = F
     return out, stages, r
 
 
-def expected_launches(intersector: str, chunks: int) -> dict:
-    """Kernel launches per FRAMES frames, derived from render_frame: one of
-    each filter stage, one a-trous launch a step; the intersector once per
-    G-buffer chunk and once per bounce and trace chunk (the primary hit
-    comes from the G-buffer)."""
-    from svgf_tpu_torch.config import RenderConfig
+def expected_launches(intersector: str, chunks: int, meta) -> dict:
+    """Kernel launches per FRAMES frames, derived from render_frame and the
+    scene's SceneMeta `meta`: one of each filter stage, one a-trous launch
+    a step; the intersector once per G-buffer chunk and, per trace chunk
+    and MIS bounce, once for the bounce's batched rays and, in a scene with
+    media, once per area light for the scatter event's only_instance
+    re-trace (the primary hit comes from the G-buffer)."""
+    from svgf_tpu_torch.config import RenderConfig, SamplingMode
     from svgf_tpu_torch.kernels.launch import LAUNCHES
+    from svgf_tpu_torch.render.pathtrace import n_area_lights
 
     cfg = RenderConfig()
-    per_frame = chunks * (1 + cfg.tracing.batch * (cfg.tracing.bounces + (not cfg.hybrid_primary)))
+    assert cfg.tracing.sampling_mode == SamplingMode.MIS
+    per_bounce = 1 + (n_area_lights(meta) if meta.has_media else 0)
+    per_frame = chunks * (1 + cfg.tracing.batch * (cfg.tracing.bounces * per_bounce
+                                                   + (not cfg.hybrid_primary)))
     launches = dict.fromkeys(LAUNCHES, 0)
     launches.update(temporal=FRAMES, moments=FRAMES, atrous=5 * FRAMES, taa=FRAMES)
     launches[intersector] = FRAMES * per_frame
@@ -1289,7 +1323,7 @@ def timed_frames(label, scene, orbit) -> tuple:
     just before them and read just after, then one more frame under the
     profiler. Returns (the last FrameOutputs, per-frame stage ms, the
     launches, {frame_ms, moments_ms: medians of frames 2-FRAMES;
-    device_ms, device_kernels: the profiled frame})."""
+    device_ms, device_kernels: the profiled frame}, the Renderer)."""
     from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
 
     reset_launches()
@@ -1298,21 +1332,22 @@ def timed_frames(label, scene, orbit) -> tuple:
     med = {k: statistics.median(st[k] for st in stages[1:]) for k in stages[0]}
     busy, kernels = profile_step(f"{label} 1080p kernels", r, med["frame"])
     return out, stages, launches, {"frame_ms": med["frame"], "moments_ms": med["moments"],
-                                   "device_ms": busy, "device_kernels": kernels}
+                                   "device_ms": busy, "device_kernels": kernels}, r
 
 
-def check_main_path() -> dict:
+def check_main_path() -> tuple[dict, dict]:
+    """Returns (the launches, timed_frames' summary of the profiled frame)."""
     from svgf_tpu_torch.scenes.cornell import cornell_box
 
     scene = cornell_box(aspect=W / H)
-    out, stages, launches, summary = timed_frames("Cornell", scene, cornell_orbit)
+    out, stages, launches, summary, r = timed_frames("Cornell", scene, cornell_orbit)
     busy, n_kernels = summary["device_ms"], summary["device_kernels"]
     before_ms, before_n = CORNELL_FRAME_BEFORE
     log(f"Cornell 1080p profiled frame against the frame before K5 wrote its Hit (PERF.md "
         f"section 5: {before_ms} ms in {before_n} device kernels): {busy - before_ms:+.3f} ms, "
         f"{n_kernels - before_n:+d} device kernels")
     log(f"main path (Cornell 1080p) launches over {FRAMES} frames: {launches}")
-    expect = expected_launches("intersect_dense", TRACE_CHUNKS)
+    expect = expected_launches("intersect_dense", TRACE_CHUNKS, r.arrays.meta)
     assert launches == expect, (launches, expect)
     check_image(out, H, W, "Cornell")
 
@@ -1320,7 +1355,7 @@ def check_main_path() -> dict:
     compare_frames("Cornell 1080p", out, plain_out)
     log_stages("Cornell kernels", stages)
     log_stages("Cornell plain", plain_stages)
-    return launches
+    return launches, summary
 
 
 def check_bf16_path() -> None:
@@ -1336,7 +1371,8 @@ def check_bf16_path() -> None:
                                 state_dtype="bfloat16")
     launches = dict(LAUNCHES)
     log(f"Cornell 1080p, bf16 state, launches over {FRAMES} frames: {launches}")
-    assert launches == expected_launches("intersect_dense", TRACE_CHUNKS), launches
+    assert launches == expected_launches("intersect_dense", TRACE_CHUNKS, r.arrays.meta), \
+        launches
     assert r.state.color.dtype == torch.bfloat16 and r.state.taa_history.dtype == torch.bfloat16
     check_image(out, H, W, "Cornell bf16")
     plain_out, _, _ = run_frames(scene, cornell_orbit, H, W, "off", TRACE_CHUNKS,
@@ -1455,11 +1491,11 @@ def check_sharded_route() -> dict:
 
 def check_stress_path(scene) -> dict:
     torch.cuda.reset_peak_memory_stats()
-    out, stages, launches, _ = timed_frames("stress", scene, stress_orbit)
+    out, stages, launches, _, r = timed_frames("stress", scene, stress_orbit)
     peak = torch.cuda.max_memory_allocated() / 2**20
     log(f"stress path (terrain 1080p, trace_chunks={TRACE_CHUNKS}) launches over {FRAMES} frames: "
         f"{launches}; peak memory {peak:.1f} MiB")
-    expect = expected_launches("intersect_clustered", TRACE_CHUNKS)
+    expect = expected_launches("intersect_clustered", TRACE_CHUNKS, r.arrays.meta)
     assert launches == expect, (launches, expect)
     check_image(out, H, W, "stress")
     log_stages("stress kernels", stages)
@@ -1565,7 +1601,8 @@ def check_nested_scene() -> dict:
     out, stages, r = run_frames(scene, nested_orbit, H, W, "on", TRACE_CHUNKS)
     launches = dict(LAUNCHES)
     log(f"nested scene 1080p launches over {FRAMES} frames: {launches}")
-    assert launches == expected_launches("intersect_clustered", TRACE_CHUNKS), launches
+    assert launches == expected_launches("intersect_clustered", TRACE_CHUNKS, r.arrays.meta), \
+        launches
     check_image(out, H, W, "nested")
     inst = r.state.gbuffer.instance
     sheets = int(torch.unique(inst[(inst >= 0) & (inst < NESTED_N)]).numel())
@@ -1584,6 +1621,185 @@ def check_nested_scene() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the materials path: every lobe, media, opacity, textures, an environment
+# ---------------------------------------------------------------------------
+
+
+class Flattened:
+    """A host scene whose flatten returns arrays already on the card: a
+    Renderer built on it renders those arrays without flattening again."""
+
+    def __init__(self, scene, arrays):
+        self.cameras = scene.cameras
+        self.arrays = arrays
+
+    def flatten(self, device=None):
+        return self.arrays
+
+
+@contextlib.contextmanager
+def recording_intersect(calls: dict):
+    """While the block runs, each call of an intersector kernel wrapper is
+    counted under (wrapper, lanes, only_instance), and the first call of
+    each kind keeps its arguments: calls[key] = [count, (scene, ro, rd), kw]."""
+    from svgf_tpu_torch.kernels import intersect as KI
+
+    wrappers = {name: getattr(KI, name)
+                for name in ("intersect_dense_kernel", "intersect_clustered_kernel")}
+
+    def recorder(name, fn):
+        def record(scene, ro, rd, **kw):
+            entry = calls.setdefault((name, ro.shape[0], kw.get("only_instance")),
+                                     [0, (scene, ro, rd), kw])
+            entry[0] += 1
+            return fn(scene, ro, rd, **kw)
+        return record
+
+    for name, fn in wrappers.items():
+        setattr(KI, name, recorder(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in wrappers.items():
+            setattr(KI, name, fn)
+
+
+def recorded_calls(label, r) -> dict:
+    """One more frame of Renderer r with its intersector calls recorded:
+    prints the lanes a call and the calls a frame of each kind."""
+    calls = {}
+    with recording_intersect(calls):
+        r.step()
+    torch.cuda.synchronize()
+    for (name, lanes, only), (count, _, kw) in sorted(calls.items(), key=str):
+        log(f"  {label}: {name} on {lanes} lanes (only_instance={only}, active mask "
+            f"{'yes' if kw.get('active') is not None else 'no'}): {count} calls a frame")
+    return calls
+
+
+def time_recorded(label, fn, b) -> dict:
+    t = time_call(fn)
+    log(f"  {label}: {t['ms']:.4f} ms through the wrapper, {t['alone_ms']:.4f} ms alone; bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({100 * b['bound_ms'] / t['alone_ms']:.1f}% "
+        "of it alone)")
+    return {**t, **b}
+
+
+def check_materials_frame(matte: dict) -> dict:
+    """The materials scene at 1080p through K1-K5 (phase 12, first half).
+    `matte`: the MATTE Cornell frame's timed_frames summary."""
+    from svgf_tpu_torch.kernels import intersect as KI
+    from svgf_tpu_torch.scenes.materials import cornell_materials
+
+    scene = cornell_materials(aspect=W / H)
+    torch.cuda.reset_peak_memory_stats()
+    out, stages, launches, summary, r = timed_frames("materials", scene, cornell_orbit)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    meta = r.arrays.meta
+    log(f"materials scene: types {meta.mat_types_used}, media {meta.has_media}, opacity "
+        f"{meta.has_opacity}, textures {meta.textures_enabled}, normal maps "
+        f"{meta.has_normal_maps}, {meta.n_lights} lights ({meta.n_envs} environment)")
+    log(f"materials (1080p) launches over {FRAMES} frames: {launches}; peak memory {peak:.1f} MiB")
+    expect = expected_launches("intersect_dense", TRACE_CHUNKS, meta)
+    assert launches == expect, (launches, expect)
+    check_image(out, H, W, "materials")
+    log(f"materials profiled frame: device {summary['device_ms']:.3f} ms in "
+        f"{summary['device_kernels']} device kernels; the MATTE Cornell frame's "
+        f"{matte['device_ms']:.3f} ms in {matte['device_kernels']}")
+    log_stages("materials kernels", stages)
+
+    calls = recorded_calls("materials", r)
+    res = {"frame_ms": summary["frame_ms"], "device_ms": summary["device_ms"],
+           "device_kernels": summary["device_kernels"], "peak_mib": peak,
+           "rays_traced": int(out.metrics.rays_traced)}
+    n_tris = meta.n_world_tris
+    widest = max(lanes for _, lanes, _ in calls)   # a bounce's batched [shadow | bsdf | seg 3]
+    for (name, lanes, only), (count, (arrays, ro, rd), kw) in calls.items():
+        if lanes != widest and only is None:
+            continue
+        label = f"K5 on {lanes} lanes" + (f", only_instance={only}" if only is not None else "")
+        swept = n_tris if only is None else meta.inst_world_range[only][1]
+        fn = lambda: KI.intersect_dense_kernel(arrays, ro, rd, **kw)
+        b = dense_call_bound(ro, rd, kw.get("active"), fn(), swept)
+        res[label] = {"calls_a_frame": count, **time_recorded(label, fn, b)}
+
+    plain_out, plain_stages, _ = run_frames(scene, cornell_orbit, H, W, "off", TRACE_CHUNKS)
+    compare_frames("materials 1080p", out, plain_out)
+    log_stages("materials plain", plain_stages)
+    return res
+
+
+def pbr_terrain(arrays):
+    """The flattened terrain with material 0 made PBR (roughness 0.8,
+    metallic 0), its fields replaced as svgf_tpu/core/edits.py
+    update_material replaces them, and mat_types_used with them."""
+    from svgf_tpu_torch.core.scene import MaterialType
+
+    mat_type, rough, metal = (x.clone() for x in (arrays.mat_type, arrays.mat_roughness,
+                                                  arrays.mat_metallic))
+    mat_type[0], rough[0], metal[0] = int(MaterialType.PBR), 0.8, 0.0
+    types = tuple(sorted(set(arrays.meta.mat_types_used) | {int(MaterialType.PBR)}))
+    return dataclasses.replace(arrays, mat_type=mat_type, mat_roughness=rough,
+                               mat_metallic=metal,
+                               meta=dataclasses.replace(arrays.meta, mat_types_used=types))
+
+
+def check_pbr_terrain(stress, arrays) -> dict:
+    """The PBR terrain (phase 12, second half): FRAMES 1080p frames through
+    K1-K4 and K6 with the launch counts, K6 alone on the frame's 3R-lane
+    call with its bound on its own counts, and one frame of kernels
+    against plain at SMALL_H x SMALL_W."""
+    from svgf_tpu_torch.kernels import intersect as KI
+
+    scene = Flattened(stress, pbr_terrain(arrays))
+    torch.cuda.reset_peak_memory_stats()
+    out, stages, launches, summary, r = timed_frames("PBR terrain", scene, stress_orbit)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"PBR terrain (1080p) launches over {FRAMES} frames: {launches}; peak memory {peak:.1f} MiB")
+    expect = expected_launches("intersect_clustered", TRACE_CHUNKS, r.arrays.meta)
+    assert launches == expect, (launches, expect)
+    check_image(out, H, W, "PBR terrain")
+    log_stages("PBR terrain kernels", stages)
+
+    res = {"frame_ms": summary["frame_ms"], "device_ms": summary["device_ms"],
+           "device_kernels": summary["device_kernels"], "peak_mib": peak}
+    _, bvh = KI.packed_scene(r.arrays)
+    calls = recorded_calls("PBR terrain", r)
+    widest = max(lanes for _, lanes, _ in calls)   # a bounce's batched [shadow | bsdf | seg 3]
+    for (name, lanes, only), (count, (a, ro, rd), kw) in calls.items():
+        if lanes != widest:
+            continue
+        active = kw.get("active")
+        _, _, st = KI.bvh_hit(a, *KI._rays(ro, rd, active, None), stats=True)
+        st = st.double().sum(0)
+        b = bound(nbytes(ro, rd, *(() if active is None else (active,)))
+                  + nbytes(*KI.intersect_clustered_kernel(a, ro, rd, **kw), bvh.nodes,
+                           KI.packed_scene(a)[0]),
+                  float(st[0]) * 2 * OPS_SLAB + float(st[1]) * OPS_MT + lanes * OPS_RECOMPUTE)
+        n_act = lanes if active is None else int(active.sum())
+        log(f"  K6 on {lanes} lanes: {n_act} active, {float(st[0]) / n_act:.2f} records and "
+            f"{float(st[1]) / n_act:.2f} triangle tests an active ray")
+        label = f"K6 on {lanes} lanes"
+        res[label] = {"calls_a_frame": count,
+                      **time_recorded(label, lambda: KI.intersect_clustered_kernel(a, ro, rd, **kw),
+                                      b)}
+
+    small, _, _ = run_frames(scene, stress_orbit, SMALL_H, SMALL_W, "on", 1, 1)
+    small_plain, small_plain_stages, _ = run_frames(scene, stress_orbit, SMALL_H, SMALL_W, "off",
+                                                    1, 1)
+    check_image(small, SMALL_H, SMALL_W, "PBR terrain 480x270")
+    compare_frames("PBR terrain 480x270", small, small_plain, 1)
+    log(f"PBR terrain 480x270 plain frame ms: {round(small_plain_stages[0]['frame'], 3)}")
+    return res
+
+
+def check_materials_path(stress, arrays, matte: dict) -> dict:
+    """Phase 12: the materials frame, then the PBR terrain."""
+    return {"materials": check_materials_frame(matte),
+            "PBR terrain": check_pbr_terrain(stress, arrays)}
+
+
 def compare_times() -> dict:
     """The times the redesigns of K2/K8, K6 and K4/K10 should move, measured
     on the tree of the port that is imported, with only the wrappers'
@@ -1593,8 +1809,9 @@ def compare_times() -> dict:
     [0, 270) band, K4 at 1080p with fp16 and fp32 history, K10 on the
     four 270-row bands and the 1080-row band, K6 on the primary and the
     scrambled rays (wrapper by events, kernel alone by the profiler), the
-    profiled terrain and Cornell frames' device time and kernels, and the
-    Cornell frame's moments stage. Prints them as one JSON line "compare: {...}"."""
+    profiled terrain, Cornell and materials frames' device time and
+    kernels (on a tree that has the materials scene), and the Cornell
+    frame's moments stage. Prints them as one JSON line "compare: {...}"."""
     import svgf_tpu_torch
     from svgf_tpu_torch.config import SVGFConfig
     from svgf_tpu_torch.kernels import filter as K
@@ -1628,8 +1845,15 @@ def compare_times() -> dict:
     arrays = stress_arrays(stress)
     for name, fn in clustered_calls(arrays, stress_rays(arrays)[0]).items():
         res[f"K6 {name}"] = time_call(fn)
-    for name, scene, orbit in (("terrain", stress, stress_orbit),
-                               ("Cornell", cornell_box(aspect=W / H), cornell_orbit)):
+    frames = [("terrain", stress, stress_orbit),
+              ("Cornell", cornell_box(aspect=W / H), cornell_orbit)]
+    try:
+        from svgf_tpu_torch.scenes.materials import cornell_materials
+    except ModuleNotFoundError:
+        log("compare_times: this tree of the port has no materials scene")
+    else:
+        frames.append(("materials", cornell_materials(aspect=W / H), cornell_orbit))
+    for name, scene, orbit in frames:
         res[f"{name} frame"] = timed_frames(name, scene, orbit)[3]
     log(smi)
     log("compare: " + json.dumps(res))
@@ -1679,7 +1903,7 @@ def main() -> int:
     stress = stress_scene(n=STRESS_N, aspect=W / H)
     arrays = phase("terrain flatten", stress_arrays, stress)
     timed["intersect_clustered"] = phase("K6", check_clustered_kernel, arrays, *stress_rays(arrays))
-    launches = phase("main path", check_main_path)
+    launches, matte = phase("main path", check_main_path)
     phase("main path, bf16 state", check_bf16_path)
     # K9a is K3's chain (one function in the port's one layout): its row is K3's call
     timed["atrous_chain"], launches["atrous_chain"] = timed["atrous"], launches["atrous"]
@@ -1689,6 +1913,7 @@ def main() -> int:
     stress_launches = phase("stress path", check_stress_path, stress)
     launches["intersect_clustered"] = stress_launches["intersect_clustered"]
     phase("nested scene", check_nested_scene)
+    phase("materials", check_materials_path, stress, arrays, matte)
     phase("K2 designs", lambda: check_moments_designs(moments_design_cases(stress)))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -10,8 +10,10 @@ the NumPy builder (tests/test_torch_convert.py, tests/test_torch_intersect.py).
 Scenes over `ops.intersect.DENSE_MAX_TRIS` world triangles get svgf_tpu's
 large-scene layout: the soup in BLAS-leaf order, padded to whole
 superclusters, with cluster bounds and the stitched world-space scene BVH
-(`wbvh_*`). Scenes with real texture sampling are not ported yet:
-`flatten` raises for them.
+(`wbvh_*`). With `textures_enabled`, the scene textures become the
+(K, 256, 256, 4) u8 stack of `core/textures.py`, a colour texture whose
+alpha falls below 1 sets `has_opacity`, and a normal texture sets
+`has_normal_maps`, as in svgf_tpu.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from svgf_tpu_torch.accel.bvh import (
 )
 from svgf_tpu_torch.accel.clusters import CLUSTER_TRIS, SUPER_CLUSTERS, compute_cluster_bounds
 from svgf_tpu_torch.core.lights import build_lights
+from svgf_tpu_torch.core.textures import build_texture_stack, resize_nearest, texture_alpha_min
 from svgf_tpu_torch.ops.intersect import DENSE_MAX_TRIS
 
 INVALID_ID = -1
@@ -142,14 +145,6 @@ def _lengyel_tangents(P: np.ndarray, N: np.ndarray, UV: np.ndarray, F: np.ndarra
     return np.concatenate([ortho, w[:, None]], axis=-1).astype(np.float32)
 
 
-def _resize_nearest(img: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Host nearest resize (svgf_tpu/core/textures.py resize_nearest)."""
-    a = np.asarray(img)
-    ys = (np.arange(h) * (a.shape[0] / h)).astype(np.int64)
-    xs = (np.arange(w) * (a.shape[1] / w)).astype(np.int64)
-    return a[ys[:, None], xs[None, :]]
-
-
 @dataclasses.dataclass
 class Instance:
     """Reference instance (Scene.h:104-115): transform + shape/material refs."""
@@ -253,7 +248,7 @@ class SceneArrays:
     mat_colour_tex: torch.Tensor    # (M,) i32
     mat_roughness_tex: torch.Tensor # (M,) i32
     mat_normal_tex: torch.Tensor    # (M,) i32
-    textures: torch.Tensor          # (1, 1, 2, 4) u8 placeholder
+    textures: torch.Tensor          # (K, S, S, 4) u8 (textures off: a (1, 1, 2, 4) placeholder)
     light_instance: torch.Tensor    # (L,) i32
     light_env: torch.Tensor         # (L,) i32
     light_cdf_start: torch.Tensor   # (L,) i32
@@ -320,10 +315,6 @@ class Scene:
         the CPU. Shapes keep their BVHs, so a second flatten of the same
         scene does not rebuild them."""
         device = target_device(device)
-        if self.textures_enabled and self.textures:
-            raise NotImplementedError(
-                "scene-texture sampling is not ported to svgf_tpu_torch yet"
-            )
         self.preprocess()
         shapes = self.shapes
 
@@ -355,7 +346,7 @@ class Scene:
             if len({e.shape for e in envs}) > 1:
                 he = max(e.shape[0] for e in envs)
                 we = max(e.shape[1] for e in envs)
-                envs = [_resize_nearest(e, he, we) for e in envs]
+                envs = [resize_nearest(e, he, we) for e in envs]
             et = np.stack(envs)
         else:
             et = np.zeros((1, 1, 2, 3), np.float32)  # placeholder, never indexed
@@ -451,7 +442,9 @@ class Scene:
             int(flat.shape_tri_start[self.instances[int(li)].shape]) if li >= 0 else -1
             for li in lights.instance
         )
-        tex_stack = np.zeros((1, 1, 2, 4), np.uint8)  # textures off: placeholder
+        tex_on = bool(self.textures_enabled and self.textures)
+        tex_stack = build_texture_stack(self.textures if tex_on else [])
+        tex_alpha = texture_alpha_min(self.textures) if tex_on else []
 
         meta = SceneMeta(
             n_instances=len(self.instances),
@@ -470,9 +463,15 @@ class Scene:
                                     MaterialType.SUBSURFACE)
                 for m in self.materials
             ),
-            has_opacity=any(m.opacity < 1.0 for m in self.materials),
-            textures_enabled=False,
-            has_normal_maps=False,
+            # the colour texture's alpha folds into opacity (Common.cuh:1458)
+            has_opacity=any(
+                m.opacity < 1.0
+                or (tex_on and 0 <= m.colour_texture < len(tex_alpha)
+                    and tex_alpha[m.colour_texture] < 1.0)
+                for m in self.materials
+            ),
+            textures_enabled=tex_on,
+            has_normal_maps=tex_on and any(m.normal_texture >= 0 for m in self.materials),
             has_scene_bvh=has_scene_bvh,
             soup_leaf_order=soup_leaf_order,
             mat_types_used=tuple(

@@ -221,7 +221,8 @@ def _scene_tensors(scene):
     return (scene.world_tris9, scene.world_tri_inst, scene.world_tri_prim, scene.world_tri_mat)
 
 
-def intersect_dense_kernel(scene, ro, rd, active=None, tmax=None, only_instance=None):
+def intersect_dense_kernel(scene, ro, rd, active=None, any_hit: bool = False, tmax=None,
+                           only_instance=None):
     """K5 (csrc/intersect_dense.cu); plain version ops.intersect.intersect_dense.
 
     Replaces svgf_tpu/kernels/intersect_pallas.py intersect_dense_pallas.
@@ -239,7 +240,8 @@ def intersect_dense_kernel(scene, ro, rd, active=None, tmax=None, only_instance=
     return _kernel_hit(dense_hit, scene, ro, rd, active, tmax, only_instance)
 
 
-def intersect_clustered_kernel(scene, ro, rd, active=None, tmax=None, only_instance=None):
+def intersect_clustered_kernel(scene, ro, rd, active=None, any_hit: bool = False, tmax=None,
+                               only_instance=None):
     """K6 (csrc/intersect_clustered.cu); plain version
     ops.intersect.traverse_scene_bvh.
 
@@ -248,9 +250,11 @@ def intersect_clustered_kernel(scene, ro, rd, active=None, tmax=None, only_insta
     child-pair records (`packed_scene`), which stay in L2, and writes the
     Hit; its visits per ray bound it. A ray without a hit reports ids 0.
     One launch a call; with `needs_recompute`, the same launch and the
-    torch recompute of t/u/v from its winner."""
+    torch recompute of t/u/v from its winner. The kernel takes `any_hit` as
+    closest-hit, as svgf_tpu's does (intersect_pallas.py:493-498); on CPU
+    tensors the plain walk ends a lane at its first hit."""
     extra = () if active is None else (active,)
     if on_cpu(ro, rd, *extra, *_scene_tensors(scene), scene.wbvh_bounds6):
-        return traverse_scene_bvh(scene, ro, rd, active=active, tmax=tmax,
+        return traverse_scene_bvh(scene, ro, rd, active=active, any_hit=any_hit, tmax=tmax,
                                   only_instance=only_instance)
     return _kernel_hit(bvh_hit, scene, ro, rd, active, tmax, only_instance)

@@ -1,8 +1,12 @@
 """Geometry primitives on batched tensors (svgf_tpu/ops/geometry.py).
 
 Rays and vectors are (..., 3). Each function keeps the operation order of
-its JAX counterpart, so the two packages round alike. Reference device
-library: Moller-Trumbore Common.cuh:509-536, transforms Common.cuh:299-329.
+its JAX counterpart, so the two packages round alike. On the CPU two
+roundings follow XLA's CPU backend, which the tests hold the port to:
+`sqrt` is correctly rounded (torch's CPU sqrt is not always), and a
+vector's norm is x0*x0 followed by two fused multiply-adds, as XLA
+compiles svgf_tpu's jnp.linalg.norm. Reference device library:
+Moller-Trumbore Common.cuh:509-536, transforms Common.cuh:299-329.
 """
 
 from __future__ import annotations
@@ -17,7 +21,26 @@ def dot(a, b):
     return (a * b).sum(-1)
 
 
+def sqrt(x):
+    """Correctly rounded sqrt: on a card torch's own (CUDA's sqrtf is);
+    for float32 on the CPU the float64 sqrt rounded to float32, which is
+    the correctly rounded float32 sqrt."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def _norm(v):
+    """|v| over the last axis, keepdim. On the CPU in float32 the sum of
+    squares is rounded as XLA's CPU backend fuses it: x0*x0, then
+    fma(x1, x1, .), then fma(x2, x2, .), each step rounded once to float32
+    (float64 holds each product of float32 inputs exactly)."""
+    if v.device.type == "cpu" and v.dtype == torch.float32:
+        d = v.double()
+        s = (d[..., 0] * d[..., 0]).float()
+        s = (d[..., 1] * d[..., 1] + s.double()).float()
+        s = (d[..., 2] * d[..., 2] + s.double()).float()
+        return sqrt(s)[..., None]
     return torch.sqrt((v * v).sum(-1, keepdim=True))
 
 
@@ -29,7 +52,7 @@ class _SafeSqrt(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
-        return torch.sqrt(torch.clamp_min(x, 0.0))
+        return sqrt(torch.clamp_min(x, 0.0))
 
     @staticmethod
     def backward(ctx, g):
@@ -94,6 +117,21 @@ def basis_from_z(z):
     )
     y = torch.stack([b, sign + z[..., 1] ** 2 * a, -z[..., 1]], dim=-1)
     return x, y, z
+
+
+def reflect(d, n):
+    """GLSL reflect: d - 2*dot(n,d)*n."""
+    return d - 2.0 * dot(n, d)[..., None] * n
+
+
+def refract(d, n, eta):
+    """GLSL refract(I, N, eta); 0 on total internal reflection. `eta` is a
+    number or a per-lane (...,) tensor."""
+    eta = torch.as_tensor(eta, dtype=d.dtype, device=d.device)
+    cosi = dot(n, d)
+    k = 1.0 - eta * eta * (1.0 - cosi * cosi)
+    refr = eta[..., None] * d - (eta * cosi + safe_sqrt(k))[..., None] * n
+    return torch.where((k < 0.0)[..., None], 0.0, refr)
 
 
 # Componentwise variants: every operand is a tuple of three tensors.
@@ -179,3 +217,13 @@ def to_srgb(c):
     c = torch.clamp_min(c, 0.0)
     safe = torch.clamp_min(c, 0.0031308)
     return torch.where(c <= 0.0031308, 12.92 * c, 1.055 * torch.pow(safe, 1.0 / 2.4) - 0.055)
+
+
+def from_srgb(c):
+    """Common.cuh ToLinear (inverse sRGB)."""
+    safe = torch.clamp_min(c, 1e-4)
+    return torch.where(c <= 0.04045, c / 12.92, torch.pow((safe + 0.055) / 1.055, 2.4))
+
+
+def is_finite3(v):
+    return torch.isfinite(v).all(-1)

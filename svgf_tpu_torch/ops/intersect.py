@@ -91,9 +91,11 @@ _WALK_CHECK_EVERY = 16
 
 
 @torch.no_grad()
-def _walk_scene_bvh(scene, ro, rd, t0, active, only_instance, counts: bool = False):
+def _walk_scene_bvh(scene, ro, rd, t0, active, only_instance, counts: bool = False,
+                    any_hit: bool = False):
     """The skip-link walk; returns (best t, winning soup column or -1),
-    and with `counts` also each lane's node visits and triangle tests."""
+    and with `counts` also each lane's node visits and triangle tests.
+    With `any_hit` a lane ends at the first hit it finds."""
     N = scene.wbvh_skip.shape[0]
     dev = ro.device
     roc, rdc = _components(ro), _components(rd)
@@ -131,11 +133,14 @@ def _walk_scene_bvh(scene, ro, rd, t0, active, only_instance, counts: bool = Fal
         tb = torch.where(closer, t, tb)
         col = torch.where(closer, tri, col)
         nxt = torch.where(box_hit & ~is_leaf, node + 1, skip[g])
+        if any_hit:
+            nxt = torch.where(closer, N, nxt)
         node = torch.where(live, nxt, node)
     return (tb, col, visits, tests) if counts else (tb, col)
 
 
-def traverse_scene_bvh(scene, ro, rd, active=None, tmax=None, only_instance=None) -> Hit:
+def traverse_scene_bvh(scene, ro, rd, active=None, any_hit: bool = False, tmax=None,
+                       only_instance=None) -> Hit:
     """Closest hit by the stitched scene-BVH walk (svgf_tpu
     traverse_scene_bvh, `:145-197`; reference IntersectTLAS,
     PathTrace.cuh:90-142): per ray one node index and the running best;
@@ -145,17 +150,22 @@ def traverse_scene_bvh(scene, ro, rd, active=None, tmax=None, only_instance=None
     the scene-BVH kernel (kernels/intersect.py).
 
     `only_instance` keeps the leaves of that instance alone (svgf_tpu walks
-    that instance's BLAS instead; the hits are the same). Inactive lanes
-    and misses report the start distance and ids 0, as svgf_tpu's Hit.none."""
+    that instance's BLAS instead; the hits are the same). With `any_hit` a
+    lane ends at the first hit it finds (`:191`): a hit, not always the
+    nearest. Inactive lanes and misses report the start distance and ids
+    0, as svgf_tpu's Hit.none."""
     t0 = start_dist(tmax, ro.shape[0], ro.device)
-    _, col = _walk_scene_bvh(scene, ro, rd, t0, active, only_instance)
+    _, col = _walk_scene_bvh(scene, ro, rd, t0, active, only_instance, any_hit=any_hit)
     return hit_from_winner(scene, ro, rd, col, t0, active)
 
 
-def intersect_dense(scene, ro, rd, active=None, tmax=None, only_instance=None) -> Hit:
+def intersect_dense(scene, ro, rd, active=None, any_hit: bool = False, tmax=None,
+                    only_instance=None) -> Hit:
     """Closest hit of every ray against the world soup's real triangles
     (those of instance `only_instance` when given). Inactive lanes report
-    dist = the start distance (MAX_LENGTH or `tmax`), as in svgf_tpu."""
+    dist = the start distance (MAX_LENGTH or `tmax`), as in svgf_tpu.
+    `any_hit` is taken as closest-hit, as svgf_tpu's dense sweep does: the
+    closest hit is a hit."""
     R = ro.shape[0]
     tw = scene.world_tris9.shape[1]
     if only_instance is not None:
@@ -200,9 +210,13 @@ def intersect_dense(scene, ro, rd, active=None, tmax=None, only_instance=None) -
     )
 
 
-def intersect_scene(scene, ro, rd, mode: str, active=None, tmax=None,
+def intersect_scene(scene, ro, rd, mode: str, active=None, any_hit: bool = False, tmax=None,
                     only_instance=None) -> Hit:
-    """Closest-hit intersection of world-space rays (R, 3) with the scene.
+    """Closest-hit (or any-hit) intersection of world-space rays (R, 3)
+    with the scene. `any_hit`: the plain scene-BVH walk ends a lane at its
+    first hit; the dense sweep and both kernels take it as closest-hit, as
+    svgf_tpu's kernels do (intersect_pallas.py:493-498). Either way a lane
+    hits iff its closest hit exists.
 
     `mode` is the intersector's kernel policy (RenderConfig
     `use_pallas_intersect`, else `use_pallas`), resolved by
@@ -221,16 +235,16 @@ def intersect_scene(scene, ro, rd, mode: str, active=None, tmax=None,
         if on:
             from svgf_tpu_torch.kernels.intersect import intersect_dense_kernel
 
-            return intersect_dense_kernel(scene, ro, rd, active=active, tmax=tmax,
-                                          only_instance=only_instance)
-        return intersect_dense(scene, ro, rd, active=active, tmax=tmax,
+            return intersect_dense_kernel(scene, ro, rd, active=active, any_hit=any_hit,
+                                          tmax=tmax, only_instance=only_instance)
+        return intersect_dense(scene, ro, rd, active=active, any_hit=any_hit, tmax=tmax,
                                only_instance=only_instance)
     if not scene.meta.soup_leaf_order:
         raise NotImplementedError(f"{n} world triangles: no intersector for an empty scene")
     if on:
         from svgf_tpu_torch.kernels.intersect import intersect_clustered_kernel
 
-        return intersect_clustered_kernel(scene, ro, rd, active=active, tmax=tmax,
-                                          only_instance=only_instance)
-    return traverse_scene_bvh(scene, ro, rd, active=active, tmax=tmax,
+        return intersect_clustered_kernel(scene, ro, rd, active=active, any_hit=any_hit,
+                                          tmax=tmax, only_instance=only_instance)
+    return traverse_scene_bvh(scene, ro, rd, active=active, any_hit=any_hit, tmax=tmax,
                               only_instance=only_instance)

@@ -2,8 +2,11 @@
 reference Common.cuh:348-459, 635-715, 1493-1517).
 
 The static light list is unrolled on the host: each light contributes one
-masked block over all lanes. Instance (area) lights are ported; sampling
-an environment light is not yet, and raises.
+masked block over all lanes. Area (instance) lights and environment
+lights, with or without an equirect texture, are sampled and their pdfs
+evaluated. `sample_lights_pdf` re-traces each area light with
+`only_instance`, as the reference's SampleLightsPDF does; the MIS bounce
+reads the pdf from its existing hit (`sample_lights_pdf_from_hit`).
 """
 
 from __future__ import annotations
@@ -18,7 +21,14 @@ from svgf_tpu_torch.ops.geometry import (
     transform_direction,
     transform_point,
 )
-from svgf_tpu_torch.ops.sampling import sample_discrete, sample_triangle_uv, sample_uniform_index
+from svgf_tpu_torch.ops.intersect import intersect_scene
+from svgf_tpu_torch.ops.sampling import (
+    sample_discrete,
+    sample_discrete_pdf,
+    sample_sphere,
+    sample_triangle_uv,
+    sample_uniform_index,
+)
 
 
 def interp(tri_attr, prim, u, v):
@@ -27,12 +37,6 @@ def interp(tri_attr, prim, u, v):
     a = tri_attr[prim]  # (R, 3, C)
     w0 = (1.0 - u - v)[..., None]
     return a[:, 1] * u[..., None] + a[:, 2] * v[..., None] + a[:, 0] * w0
-
-
-def _env_light_unported():
-    return NotImplementedError(
-        "environment lights are not ported to svgf_tpu_torch yet"
-    )
 
 
 def eval_environment(scene, direction):
@@ -67,17 +71,33 @@ def sample_lights(scene, position, rand_l, rand_el, rand_uv):
         return out
     lid = sample_uniform_index(meta.n_lights, rand_l)
     for l in range(meta.n_lights):
-        if meta.light_instance[l] < 0:
-            raise _env_light_unported()
-        inst = meta.light_instance[l]
-        elem = sample_discrete(
-            scene.lights_cdf, meta.light_cdf_start[l], meta.light_cdf_count[l], rand_el
-        )
-        uv = sample_triangle_uv(rand_uv) if meta.light_cdf_count[l] > 0 else rand_uv
-        prim = meta.light_tri_start[l] + elem
-        lp = interp(scene.tri_pos, prim, uv[..., 0], uv[..., 1])
-        lp = transform_point(scene.inst_transform[inst], lp)
-        d = normalize(lp - position)
+        if meta.light_instance[l] >= 0:
+            inst = meta.light_instance[l]
+            elem = sample_discrete(
+                scene.lights_cdf, meta.light_cdf_start[l], meta.light_cdf_count[l], rand_el
+            )
+            uv = sample_triangle_uv(rand_uv) if meta.light_cdf_count[l] > 0 else rand_uv
+            prim = meta.light_tri_start[l] + elem
+            lp = interp(scene.tri_pos, prim, uv[..., 0], uv[..., 1])
+            lp = transform_point(scene.inst_transform[inst], lp)
+            d = normalize(lp - position)
+        else:
+            env = meta.light_env[l]
+            if meta.env_tex[env] >= 0:
+                h, w = scene.env_textures.shape[1:3]
+                s = sample_discrete(
+                    scene.lights_cdf, meta.light_cdf_start[l], meta.light_cdf_count[l], rand_el
+                )
+                u = ((s % w).to(torch.float32) + 0.5) / w
+                v = (torch.div(s, w, rounding_mode="floor").to(torch.float32) + 0.5) / h
+                local = torch.stack([
+                    torch.cos(u * 2.0 * PI) * torch.sin(v * PI),
+                    torch.cos(v * PI),
+                    torch.sin(u * 2.0 * PI) * torch.sin(v * PI),
+                ], dim=-1)
+                d = transform_direction(scene.env_transform[env], local)
+            else:
+                d = sample_sphere(rand_uv)
         out = torch.where((lid == l)[..., None], d, out)
     return out
 
@@ -96,22 +116,62 @@ def _instance_light_pdf(scene, l, inst, position, direction, ok, prim, u, v):
     return torch.where(ok, d2, 0.0) / torch.where(ok, denom, 1.0)
 
 
+def _env_light_pdf(scene, l, position, direction):
+    """Environment light pdf term (Common.cuh:694-713). No tracing needed."""
+    meta = scene.meta
+    env = meta.light_env[l]
+    if meta.env_tex[env] >= 0:
+        wd = transform_direction(scene.env_inv_transform[env], direction)
+        tx = torch.atan2(wd[..., 2], wd[..., 0]) / (2.0 * PI)
+        tx = torch.where(tx < 0, tx + 1.0, tx)
+        ty = torch.arccos(torch.clamp(wd[..., 1], -1.0, 1.0)) / PI
+        h, w = scene.env_textures.shape[1:3]
+        u = torch.clamp((tx * w).to(torch.int32), 0, w - 1)
+        v = torch.clamp((ty * h).to(torch.int32), 0, h - 1)
+        prob = sample_discrete_pdf(scene.lights_cdf, meta.light_cdf_start[l],
+                                   meta.light_cdf_count[l], v * w + u)
+        angle = (2.0 * PI / w) * (PI / h) * torch.sin(PI * (v.to(torch.float32) + 0.5) / h)
+        return prob / torch.clamp_min(angle, 1e-18)
+    return torch.full(position.shape[:-1], 1.0 / (4.0 * PI), device=position.device)
+
+
+def _lights_pdf(scene, position, direction, light_hit):
+    """The light sampler's pdf of `direction` from `position`: the mean of
+    each light's term, an area light's from `light_hit(inst)` = (ok, Hit),
+    whether and where the ray meets instance `inst`."""
+    meta = scene.meta
+    pdf = torch.zeros(position.shape[:-1], device=position.device)
+    for l in range(meta.n_lights):
+        inst = meta.light_instance[l]
+        if inst >= 0:
+            ok, hit = light_hit(inst)
+            pdf = pdf + _instance_light_pdf(
+                scene, l, inst, position, direction, ok, hit.prim, hit.u, hit.v
+            )
+        else:
+            pdf = pdf + _env_light_pdf(scene, l, position, direction)
+    if meta.n_lights > 0:
+        pdf = pdf / meta.n_lights
+    return pdf
+
+
 def sample_lights_pdf_from_hit(scene, position, direction, hit):
     """Light-sampler pdf of `direction`, from the existing full-scene hit
     along that ray: an instance light contributes iff the nearest hit lands
     on it (svgf_tpu's fix of the reference's per-light re-traces,
-    PARITY.md)."""
-    R = position.shape[0]
-    meta = scene.meta
-    pdf = torch.zeros((R,), device=position.device)
-    for l in range(meta.n_lights):
-        if meta.light_instance[l] < 0:
-            raise _env_light_unported()
-        inst = meta.light_instance[l]
-        ok = (hit.dist < MAX_LENGTH) & (hit.instance == inst)
-        pdf = pdf + _instance_light_pdf(
-            scene, l, inst, position, direction, ok, hit.prim, hit.u, hit.v
-        )
-    if meta.n_lights > 0:
-        pdf = pdf / meta.n_lights
-    return pdf
+    PARITY.md); environment terms need no trace."""
+    return _lights_pdf(scene, position, direction, lambda inst: (
+        (hit.dist < MAX_LENGTH) & (hit.instance == inst), hit))
+
+
+def sample_lights_pdf(scene, position, direction, intersect_mode: str):
+    """SampleLightsPDF (Common.cuh:635-715): the solid-angle pdf of sampling
+    `direction` from `position` through the light sampler. Each area light
+    re-traces all lanes against that instance alone (`only_instance`, one
+    intersect call a light, through the kernel when `intersect_mode`
+    resolves to it)."""
+    def light_hit(inst):
+        hit = intersect_scene(scene, position, direction, intersect_mode, only_instance=inst)
+        return hit.dist < MAX_LENGTH, hit
+
+    return _lights_pdf(scene, position, direction, light_hit)

@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from svgf_tpu_torch.ops.geometry import PI, basis_from_z, dot, normalize
+from svgf_tpu_torch.ops.geometry import PI, basis_from_z, dot, normalize, sqrt
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -83,14 +83,22 @@ def sample_uniform_index(size: int, rand):
 
 def sample_triangle_uv(ruv):
     """Uniform triangle barycentrics (Common.cuh:229-234)."""
-    s = torch.sqrt(ruv[..., 0])
+    s = sqrt(ruv[..., 0])
     return torch.stack([1.0 - s, ruv[..., 1] * s], dim=-1)
+
+
+def sample_sphere(ruv):
+    """(Common.cuh:399-405)."""
+    z = 2.0 * ruv[..., 1] - 1.0
+    r = sqrt(torch.clamp(1.0 - z * z, 0.0, 1.0))
+    phi = 2.0 * PI * ruv[..., 0]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
 def sample_hemisphere_cosine(normal, ruv):
     """(Common.cuh:721-729)."""
-    z = torch.sqrt(ruv[..., 1])
-    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    z = sqrt(ruv[..., 1])
+    r = sqrt(torch.clamp_min(1.0 - z * z, 0.0))
     phi = 2.0 * PI * ruv[..., 0]
     local = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
     bx, by, bz = basis_from_z(normal)
@@ -131,3 +139,12 @@ def sample_discrete(cdf, start: int, count: int, rand):
     r = torch.minimum(torch.clamp_min(rand * last, 0.0), last - 1e-5)
     idx = upper_bound_segment(cdf, start, count, r) - start
     return torch.clamp(idx, 0, count - 1)
+
+
+def sample_discrete_pdf(cdf, start: int, count: int, idx):
+    """(Common.cuh:407-411): the probability mass of element `idx`."""
+    n = cdf.shape[0]
+    hi = cdf[torch.clamp(start + idx, 0, n - 1)]
+    lo = torch.where(idx == 0, 0.0, cdf[torch.clamp(start + idx - 1, 0, n - 1)])
+    last = cdf[min(max(start + count - 1, 0), n - 1)]
+    return (hi - lo) / last

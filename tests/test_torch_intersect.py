@@ -667,3 +667,49 @@ def test_spill_entries(depth, entries):
     """The scratch entries a ray past K6's 64-entry stack: none where the
     stack holds the tree's depth, else the depth's excess."""
     assert KI.spill_entries(depth) == entries
+
+
+# ---------------------------------------------------------------------------
+# any_hit (tests/test_bvh.py:114-119)
+# ---------------------------------------------------------------------------
+
+
+def _bvh_test_camera_rays(n, seed):
+    """tests/test_bvh.py _camera_rays: from the Cornell eye into the box."""
+    rng = np.random.default_rng(seed)
+    ro = np.tile(np.array([[0.0, 0.0, 3.4]], np.float32), (n, 1))
+    d = np.stack([rng.uniform(-0.4, 0.4, n), rng.uniform(-0.4, 0.4, n), -np.ones(n)], axis=-1)
+    return ro, (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("intersector", ["dense", "bvh"])
+def test_any_hit_consistency(cornell, stress, stress_rays, intersector):
+    """any_hit reports a hit iff closest-hit does, on the dense sweep (the
+    Cornell box, the camera rays of tests/test_bvh.py) and the plain
+    scene-BVH walk (the stress scene), through intersect_scene and the
+    kernel wrappers' CPU side; the walk's first hit is a real hit, never
+    nearer than the closest, and the dense sweep takes any_hit as
+    closest-hit, as svgf_tpu's kernels do."""
+    if intersector == "dense":
+        ja, ta = cornell
+        ro, rd = _bvh_test_camera_rays(256, seed=2)
+        wrapper = KI.intersect_dense_kernel
+        assert 0 < ta.meta.n_world_tris <= 16384
+    else:
+        ja, ta = stress
+        ro, rd = stress_rays["scrambled"]
+        wrapper = KI.intersect_clustered_kernel
+        assert ta.meta.has_scene_bvh
+    for fn in (lambda **kw: intersect_scene(ta, _t(ro), _t(rd), "off", **kw),
+               lambda **kw: wrapper(ta, _t(ro), _t(rd), **kw)):
+        h_any, h_close = fn(any_hit=True), fn()
+        valid_any, valid_close = _np(h_any.dist) < 1e29, _np(h_close.dist) < 1e29
+        np.testing.assert_array_equal(valid_any, valid_close)
+        assert valid_close.mean() > 0.2
+        assert (_np(h_any.dist) >= _np(h_close.dist))[valid_any].all()
+        if intersector == "dense":
+            for f in HIT_FIELDS:
+                np.testing.assert_array_equal(_np(getattr(h_any, f)), _np(getattr(h_close, f)))
+    # svgf_tpu's own any-hit verdicts (tests/test_bvh.py) are the same
+    j_any = j_intersect_scene(ja, jnp.asarray(ro), jnp.asarray(rd), any_hit=True)
+    np.testing.assert_array_equal(_np(j_any.dist) < 1e29, valid_close)
