@@ -87,6 +87,28 @@ Phases, each failing loudly (no phase catches an exception):
      1080p frames through K1-K4 and K6 with launch counts, K6 alone on its
      3R-lane call with its bound, and one frame of kernels against plain at
      480x270.
+ 13. scene I/O and edits (runs last: it moves the terrain's light):
+     (a) the Cornell box at 1920x1080 through K1-K5, fp16 state, for 4
+     frames, a wall recoloured by Renderer.update_material before frame 3
+     (no packed scene made, K5's launches a frame unchanged) and the tall
+     block moved by update_instance_transform before frame 4 (one packed
+     scene made), frame 4 against the plain route with the same edits;
+     prints each edit's host ms and the frames after them against frame
+     2; (b) a checkpoint after frame 2 (io.save_checkpoint), a new
+     Renderer resumed from it (io.load_checkpoint) renders frames 3-4
+     with the same poses and edits, equal to the uninterrupted frames with
+     max error 0, with fp16 and with bf16 state; prints the save and load
+     seconds and the file's size; (c) Renderer.add_asset of a small OBJ
+     (the frame stays on K5) and of a binary PLY of a 19,602-triangle
+     heightfield (past DENSE_MAX_TRIS: the large-scene layout and K6),
+     FRAMES frames with the launches expected_launches derives from the
+     new SceneMeta, and a 480x270 frame of kernels against plain; (d) the
+     terrain's light moved and scaled on phase 5's arrays (its stitched
+     scene BVH, cluster bounds and light CDF rebuilt): K6 on its 1080p
+     primary rays against the plain walk and the recompute of its winner,
+     with the edit's host seconds, the repack's ms and the new depth; (e)
+     the materials scene through io.save_scene_npz / load_scene_npz, its
+     1080p frame 1 through K1-K5 equal to the original's bit for bit.
 Every kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its FP32 operations on these inputs over 67 TFLOP/s
 (the H100 SXM's published peaks at 700 W).
@@ -107,9 +129,11 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1214,21 +1238,28 @@ def profile_step(label, renderer, frame_ms: float) -> tuple[float, int]:
     return busy, len(kernels)
 
 
+def render_config(h, w, use_pallas: str, chunks: int, state_dtype: str = "float16",
+                  bounces: int = 3):
+    """The frames' RenderConfig: 5 a-trous steps, no debug taps kept."""
+    from svgf_tpu_torch.config import RenderConfig, SVGFConfig, TracingConfig
+
+    return RenderConfig(
+        width=w, height=h, svgf=SVGFConfig(spatial_filter_steps=5), state_dtype=state_dtype,
+        keep_taps=False, use_pallas=use_pallas, trace_chunks=chunks,
+        tracing=TracingConfig(bounces=bounces),
+    )
+
+
 def run_frames(scene, orbit, h, w, use_pallas: str, chunks: int, frames: int = FRAMES,
                state_dtype: str = "float16", bounces: int = 3):
     """`frames` frames through Renderer.step, the camera set by orbit(f)
     (None keeps it) before frame f. Returns (last FrameOutputs, per-frame
     stage milliseconds, the Renderer)."""
-    from svgf_tpu_torch.config import RenderConfig, SVGFConfig, TracingConfig
     from svgf_tpu_torch.render.pipeline import Renderer
 
-    cfg = RenderConfig(
-        width=w, height=h, svgf=SVGFConfig(spatial_filter_steps=5), state_dtype=state_dtype,
-        keep_taps=False, use_pallas=use_pallas, trace_chunks=chunks,
-        tracing=TracingConfig(bounces=bounces),
-    )
     cam0 = scene.cameras[0]
-    r = Renderer(scene, cfg, device=DEVICE)
+    r = Renderer(scene, render_config(h, w, use_pallas, chunks, state_dtype, bounces),
+                 device=DEVICE)
     stages = []
     out = None
     for f in range(frames):
@@ -1448,8 +1479,6 @@ def check_sharded_route() -> dict:
     """Phase 9: make_sharded_step on one NCCL rank, FRAMES Cornell 1080p
     frames, against the unsharded Renderer's frames; then the same with
     bf16 state (K7 and K10 reading it)."""
-    import os
-
     import torch.distributed as dist
 
     from svgf_tpu_torch.parallel import init_distributed, make_row_mesh
@@ -1800,6 +1829,264 @@ def check_materials_path(stress, arrays, matte: dict) -> dict:
             "PBR terrain": check_pbr_terrain(stress, arrays)}
 
 
+# ---------------------------------------------------------------------------
+# scene I/O and edits: material and transform edits, resume, asset import
+# ---------------------------------------------------------------------------
+
+EDIT_WALL = 1    # the Cornell box's left wall material, recoloured before frame 3
+EDIT_BLOCK = 4   # the tall block instance, moved before frame 4
+
+
+def cornell_edit(r, f: int):
+    """Apply the edit of phase 13's Cornell sequence that comes before frame
+    index f (a wall's colour before index 2, the tall block moved before
+    index 3) to Renderer r; returns its host ms, or None without an edit."""
+    if f not in (2, 3):
+        return None
+    t0 = time.perf_counter()
+    if f == 2:
+        r.update_material(EDIT_WALL, dataclasses.replace(r.scene.materials[EDIT_WALL],
+                                                         colour=(0.15, 0.35, 0.75)))
+    else:
+        t = np.asarray(r.scene.instances[EDIT_BLOCK].transform, np.float32).copy()
+        t[:3, 3] += (0.15, 0.0, 0.1)
+        r.update_instance_transform(EDIT_BLOCK, t)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def edit_frames(r, frames, ckpt: str | None = None) -> dict:
+    """Frames `frames` (indices) of the edited Cornell sequence on Renderer
+    r: before frame f its edit (cornell_edit), then the camera to
+    cornell_orbit(f). Returns {f: {out, ms (host, synchronized), edit_ms,
+    repacks (packed scenes made in the frame), launches (of the frame)}}.
+    With `ckpt`, r.state is saved there after index 1 (frame 2), and the
+    save's seconds and the file's MiB are under "save" in the result."""
+    from svgf_tpu_torch.io import save_checkpoint
+    from svgf_tpu_torch.kernels import intersect as KI
+    from svgf_tpu_torch.kernels.launch import LAUNCHES
+
+    res = {}
+    for f in frames:
+        edit_ms = cornell_edit(r, f)
+        if cornell_orbit(f) is not None:
+            r.update_camera(cornell_orbit(f))
+        keys, before = set(KI._PACKED), dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = r.step()
+        torch.cuda.synchronize()
+        res[f] = {"out": out, "ms": (time.perf_counter() - t0) * 1e3, "edit_ms": edit_ms,
+                  "repacks": len(set(KI._PACKED) - keys),
+                  "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES}}
+        if f == 1 and ckpt is not None:
+            t0 = time.perf_counter()
+            save_checkpoint(ckpt, r.state)
+            res["save"] = {"s": time.perf_counter() - t0, "mib": os.path.getsize(ckpt) / 2**20}
+    return res
+
+
+def check_edits_and_resume(tmp: str, state_dtype: str) -> dict:
+    """Phase 13 (a) and (b) with one state type: the Cornell box at 1080p
+    through K1-K5 for 4 frames with a wall recoloured before frame 3 and
+    the tall block moved before frame 4, checkpointed after frame 2; a new
+    Renderer resumes from the checkpoint and renders frames 3-4 with the
+    same poses and edits, which must equal the uninterrupted frames with
+    max error 0. With fp16 state (a): the material edit makes no packed
+    scene and leaves K5's launches a frame as they were, the transform
+    edit makes one, and frame 4 matches the plain route's."""
+    from svgf_tpu_torch.io import load_checkpoint
+    from svgf_tpu_torch.render.pipeline import Renderer
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    cfg = render_config(H, W, "on", TRACE_CHUNKS, state_dtype)
+    path = os.path.join(tmp, f"state_{state_dtype}.npz")
+    whole = edit_frames(Renderer(cornell_box(aspect=W / H), cfg, device=DEVICE), range(4), path)
+    r = Renderer(cornell_box(aspect=W / H), cfg, device=DEVICE)
+    r.update_camera(cornell_orbit(1))
+    t0 = time.perf_counter()
+    r.state = load_checkpoint(path, device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    resumed = edit_frames(r, (2, 3))
+    save = whole["save"]
+    log(f"Cornell 1080p {state_dtype}: checkpoint after frame 2 {save['mib']:.3f} MiB, saved in "
+        f"{save['s']:.3f} s, loaded in {load_s:.3f} s; frame ms "
+        f"{[round(whole[f]['ms'], 3) for f in range(4)]}")
+    for f in (2, 3):
+        d = float((whole[f]["out"].final - resumed[f]["out"].final).abs().max())
+        log(f"  frame {f + 1} resumed vs uninterrupted: max error {d}")
+        assert torch.equal(whole[f]["out"].final, resumed[f]["out"].final), (state_dtype, f, d)
+    res = {"save_s": save["s"], "load_s": load_s, "mib": save["mib"]}
+    if state_dtype != "float16":
+        return res
+
+    k5 = [whole[f]["launches"]["intersect_dense"] for f in range(4)]
+    for f, name in ((2, "material"), (3, "transform")):
+        log(f"  {name} edit before frame {f + 1}: {whole[f]['edit_ms']:.3f} ms host; frame "
+            f"{f + 1} {whole[f]['ms']:.3f} ms against frame 2's {whole[1]['ms']:.3f}; packed "
+            f"scenes made in the frame {whole[f]['repacks']}; K5 launches {k5[f]}")
+        res[f"{name}_edit_ms"], res[f"{name}_frame_ms"] = whole[f]["edit_ms"], whole[f]["ms"]
+    res["frame2_ms"] = whole[1]["ms"]
+    assert whole[2]["repacks"] == 0 and whole[3]["repacks"] == 1, whole
+    per_frame = expected_launches("intersect_dense", TRACE_CHUNKS, r.arrays.meta)
+    assert all(n == per_frame["intersect_dense"] // FRAMES for n in k5), k5
+    plain = edit_frames(Renderer(cornell_box(aspect=W / H),
+                                 render_config(H, W, "off", TRACE_CHUNKS), device=DEVICE), range(4))
+    compare_frames("Cornell 1080p after both edits", whole[3]["out"], plain[3]["out"], 4)
+    return res
+
+
+def write_ply(path: str, positions, indices) -> None:
+    """A binary little-endian PLY of one triangle mesh."""
+    faces = np.zeros(len(indices), dtype=[("n", "u1"), ("v", "<i4", (3,))])
+    faces["n"], faces["v"] = 3, indices
+    header = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(positions)}\n"
+              "property float x\nproperty float y\nproperty float z\n"
+              f"element face {len(indices)}\nproperty list uchar int vertex_indices\nend_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode() + np.asarray(positions, "<f4").tobytes() + faces.tobytes())
+
+
+def write_obj(path: str, positions, indices) -> None:
+    with open(path, "w") as f:
+        f.writelines(f"v {x} {y} {z}\n" for x, y, z in positions)
+        f.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in indices)
+
+
+PLY_N = 100   # heightfield_shape(n=100): 19,602 triangles
+
+
+def check_asset_import(tmp: str) -> dict:
+    """Phase 13 (c): Renderer.add_asset on the 1080p Cornell box. A small
+    OBJ (a tetrahedron) keeps the soup under DENSE_MAX_TRIS and the frame
+    on K5; then a binary PLY of heightfield_shape(n=PLY_N) scaled into the
+    box takes it past the limit, to the large-scene layout and K6: FRAMES
+    frames through K1-K4 and K6 with the launches expected_launches
+    derives from the new SceneMeta, and one 480x270 frame of kernels
+    against plain."""
+    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
+    from svgf_tpu_torch.ops.intersect import DENSE_MAX_TRIS
+    from svgf_tpu_torch.render.pipeline import Renderer
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+    from svgf_tpu_torch.scenes.stress import heightfield_shape
+
+    hf = heightfield_shape(PLY_N)
+    pos = np.asarray(hf.positions, np.float32) * np.float32([0.45, 0.4, 0.45]) + \
+        np.float32([0.0, -0.75, 0.0])
+    ply, obj = os.path.join(tmp, "heightfield.ply"), os.path.join(tmp, "tetra.obj")
+    write_ply(ply, pos, hf.indices)
+    write_obj(obj, [(0.3, -0.2, 0.3), (0.6, -0.2, 0.3), (0.45, -0.2, 0.6), (0.45, 0.1, 0.4)],
+              [(0, 2, 1), (0, 1, 3), (1, 2, 3), (2, 0, 3)])
+
+    r = Renderer(cornell_box(aspect=W / H), render_config(H, W, "on", TRACE_CHUNKS), device=DEVICE)
+    r.step()
+    res = {}
+    for name, path, large in (("OBJ", obj, False), ("PLY", ply, True)):
+        t0 = time.perf_counter()
+        r.add_asset(path)
+        torch.cuda.synchronize()
+        res[f"{name}_add_s"] = time.perf_counter() - t0
+        meta = r.arrays.meta
+        log(f"add_asset({name}): {res[f'{name}_add_s']:.3f} s host; {meta.n_world_tris} world "
+            f"triangles, large-scene layout {meta.soup_leaf_order}, scene BVH {meta.has_scene_bvh}")
+        assert meta.soup_leaf_order == meta.has_scene_bvh == large
+        assert (meta.n_world_tris > DENSE_MAX_TRIS) == large
+        if not large:
+            reset_launches()
+            r.step()
+            torch.cuda.synchronize()
+            expect = expected_launches("intersect_dense", TRACE_CHUNKS, meta)
+            assert dict(LAUNCHES) == {k: n // FRAMES for k, n in expect.items()}, LAUNCHES
+    reset_launches()
+    ms = []
+    for f in range(FRAMES):
+        r.update_camera(cornell_orbit(f + 1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = r.step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(LAUNCHES)
+    log(f"Cornell + heightfield (1080p) launches over {FRAMES} frames: {launches}; frame ms "
+        f"{[round(m, 3) for m in ms]} (the first takes the K6 repack)")
+    assert launches == expected_launches("intersect_clustered", TRACE_CHUNKS, r.arrays.meta), \
+        launches
+    check_image(out, H, W, "Cornell + heightfield")
+    res["switch_frame_ms"], res["frame_ms"] = ms[0], statistics.median(ms[1:])
+    scene = Flattened(r.scene, r.arrays)
+    small, _, _ = run_frames(scene, cornell_orbit, SMALL_H, SMALL_W, "on", 1, 1)
+    small_plain, _, _ = run_frames(scene, cornell_orbit, SMALL_H, SMALL_W, "off", 1, 1)
+    compare_frames("Cornell + heightfield 480x270", small, small_plain, 1)
+    return res
+
+
+def check_terrain_edit(stress, arrays) -> dict:
+    """Phase 13 (d): the terrain's emissive light moved and scaled by
+    update_instance_transform on phase 5's flattened arrays (the stitched
+    scene BVH, the cluster bounds over its soup block and the light CDF
+    rebuilt); K6 on the 1080p primary rays against the plain walk, and its
+    Hit against the recompute of its winner. Moves `stress`'s light."""
+    from svgf_tpu_torch.core.edits import update_instance_transform
+    from svgf_tpu_torch.kernels import intersect as KI
+
+    light = next(i for i, inst in enumerate(stress.instances) if inst.name == "light")
+    depth_before = KI.child_pair_bvh(arrays).depth
+    t = np.asarray(stress.instances[light].transform, np.float32).copy()
+    t[:3, :3] *= 1.2
+    t[:3, 3] += (0.4, -0.3, 0.2)
+    t0 = time.perf_counter()
+    edited = update_instance_transform(stress, arrays, light, t)
+    torch.cuda.synchronize()
+    edit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, bvh = KI.packed_scene(edited)
+    torch.cuda.synchronize()
+    repack_ms = (time.perf_counter() - t0) * 1e3
+    log(f"terrain light moved: edit {edit_s:.3f} s host, repack {repack_ms:.3f} ms, scene BVH "
+        f"depth {depth_before} -> {bvh.depth} (spill entries {KI.spill_entries(bvh.depth)})")
+    assert not torch.equal(edited.light_area, arrays.light_area)
+    assert not torch.equal(edited.wbvh_bounds6, arrays.wbvh_bounds6)
+    ro, rd = stress_rays(edited)[0]["primary"]
+    err = check_k6_case(edited, "K6, terrain after the edit, primary rays", ro, rd, {})
+    return {"edit_s": edit_s, "repack_ms": repack_ms, "depth": bvh.depth, "max_abs_err": err}
+
+
+def check_scene_npz(tmp: str) -> dict:
+    """Phase 13 (e): the materials scene through save_scene_npz and
+    load_scene_npz: its frame 1 at 1080p through K1-K5 equals the
+    original's bit for bit."""
+    from svgf_tpu_torch.io import load_scene_npz, save_scene_npz
+    from svgf_tpu_torch.scenes.materials import cornell_materials
+
+    scene = cornell_materials(aspect=W / H)
+    path = os.path.join(tmp, "materials.npz")
+    t0 = time.perf_counter()
+    save_scene_npz(path, scene)
+    back = load_scene_npz(path)
+    io_s = time.perf_counter() - t0
+    want, _, _ = run_frames(scene, cornell_orbit, H, W, "on", TRACE_CHUNKS, 1)
+    got, _, _ = run_frames(back, cornell_orbit, H, W, "on", TRACE_CHUNKS, 1)
+    d = float((want.final - got.final).abs().max())
+    log(f"materials scene through npz ({os.path.getsize(path) / 2**20:.3f} MiB, save + load "
+        f"{io_s:.3f} s): frame 1 max error {d}")
+    assert torch.equal(want.final, got.final), d
+    return {"io_s": io_s}
+
+
+def check_scene_io_and_edits(stress, arrays) -> dict:
+    """Phase 13: (a, b) edits and resume with fp16 and bf16 state, (c) the
+    asset import across the dense limit, (d) the terrain edit, (e) the
+    scene npz round trip; files in a temporary directory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        res = {dt: check_edits_and_resume(tmp, dt) for dt in ("float16", "bfloat16")}
+        res["import"] = check_asset_import(tmp)
+        res["terrain"] = check_terrain_edit(stress, arrays)
+        res["npz"] = check_scene_npz(tmp)
+    log("phase 13: " + json.dumps(res))
+    return res
+
+
 def compare_times() -> dict:
     """The times the redesigns of K2/K8, K6 and K4/K10 should move, measured
     on the tree of the port that is imported, with only the wrappers'
@@ -1915,6 +2202,8 @@ def main() -> int:
     phase("nested scene", check_nested_scene)
     phase("materials", check_materials_path, stress, arrays, matte)
     phase("K2 designs", lambda: check_moments_designs(moments_design_cases(stress)))
+    # last: it moves the terrain's light
+    phase("scene I/O and edits", check_scene_io_and_edits, stress, arrays)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K6 also carries the yardstick bound that its earlier design was read against

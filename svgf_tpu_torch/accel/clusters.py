@@ -79,3 +79,28 @@ def compute_cluster_bounds(world9: np.ndarray, w_inst: np.ndarray):
     sb[:, 6] = g[:, :, 6].min(axis=1)
     sb[:, 7] = g[:, :, 7].max(axis=1)
     return cb, sb.astype(np.float32)
+
+
+def cluster_range_for_cols(start: int, count: int) -> tuple[int, int]:
+    """Supercluster-aligned cluster range [c0, c1) covering soup columns
+    [start, start+count): the only clusters whose bounds can change when
+    those columns move (core.edits' transform update)."""
+    grain = SUPER_CLUSTERS
+    c0 = (start // CLUSTER_TRIS) // grain * grain
+    c_end = -(-(start + count) // CLUSTER_TRIS)   # ceil: last touched cluster + 1
+    c1 = -(-c_end // grain) * grain
+    return c0, c1
+
+
+def compute_cluster_bounds_range(world9: np.ndarray, w_inst: np.ndarray,
+                                 start: int, count: int):
+    """Bounds of ONLY the clusters overlapping soup columns
+    [start, start+count). Returns (c0, c1, cb_rows (c1-c0, 8),
+    sb_rows ((c1-c0)/16, 8)) with c0/c1 supercluster-aligned, the rows
+    that replace [c0, c1) of the cluster bounds and [c0/16, c1/16) of the
+    supercluster bounds. world9/w_inst are the FULL host-side soup (a
+    host mirror; only the [c0*CLUSTER_TRIS, c1*CLUSTER_TRIS) slice is read)."""
+    c0, c1 = cluster_range_for_cols(start, count)
+    lo_col, hi_col = c0 * CLUSTER_TRIS, c1 * CLUSTER_TRIS
+    cb, sb = compute_cluster_bounds(world9[:, lo_col:hi_col], w_inst[lo_col:hi_col])
+    return c0, c1, cb, sb

@@ -273,6 +273,26 @@ class SceneArrays:
         return [f.name for f in dataclasses.fields(SceneArrays) if f.name != "meta"]
 
 
+def material_flags(materials, tex_alpha) -> dict:
+    """The SceneMeta fields that follow from the materials: has_media,
+    has_opacity and mat_types_used. `tex_alpha`: each texture's least
+    alpha when textures are enabled, else empty."""
+    return dict(
+        has_media=any(
+            m.material_type in (MaterialType.VOLUMETRIC, MaterialType.GLASS,
+                                MaterialType.SUBSURFACE)
+            for m in materials
+        ),
+        # the colour texture's alpha folds into opacity (Common.cuh:1458)
+        has_opacity=any(
+            m.opacity < 1.0
+            or (0 <= m.colour_texture < len(tex_alpha) and tex_alpha[m.colour_texture] < 1.0)
+            for m in materials
+        ),
+        mat_types_used=tuple(sorted({int(m.material_type) for m in materials})) or (0,),
+    )
+
+
 def target_device(device) -> torch.device:
     """`device` as a torch.device; raises for a CUDA device when torch sees
     no card (the port never falls back to the CPU on its own)."""
@@ -458,25 +478,11 @@ class Scene:
             env_tex=tuple(int(e.emission_texture) for e in self.environments),
             n_world_tris=tw,
             inst_world_range=tuple(inst_ws),
-            has_media=any(
-                m.material_type in (MaterialType.VOLUMETRIC, MaterialType.GLASS,
-                                    MaterialType.SUBSURFACE)
-                for m in self.materials
-            ),
-            # the colour texture's alpha folds into opacity (Common.cuh:1458)
-            has_opacity=any(
-                m.opacity < 1.0
-                or (tex_on and 0 <= m.colour_texture < len(tex_alpha)
-                    and tex_alpha[m.colour_texture] < 1.0)
-                for m in self.materials
-            ),
             textures_enabled=tex_on,
             has_normal_maps=tex_on and any(m.normal_texture >= 0 for m in self.materials),
             has_scene_bvh=has_scene_bvh,
             soup_leaf_order=soup_leaf_order,
-            mat_types_used=tuple(
-                sorted({int(m.material_type) for m in self.materials})
-            ) or (0,),
+            **material_flags(self.materials, tex_alpha),
         )
         assert len(self.instances) < 65536, (
             f"{len(self.instances)} instances; ids must fit u16/f32 exactly"

@@ -18,10 +18,29 @@ from svgf_tpu_torch.render.pipeline import Renderer
 from svgf_tpu_torch.scenes.cornell import cornell_box
 cfg = RenderConfig(width=16, height=16, svgf=SVGFConfig(spatial_filter_steps=2),
                    tracing=TracingConfig(bounces=2))
-out = Renderer(cornell_box(), cfg, device="cpu").step()
+r = Renderer(cornell_box(), cfg, device="cpu")
+out = r.step()
 final = out.final.numpy()
 assert final.shape == (16, 16, 3) and np.isfinite(final).all()
 assert final.min() >= 0.0 and final.max() <= 1.0
+# the io modules and the scene edits need no JAX either
+import dataclasses, os, tempfile
+import torch
+from svgf_tpu_torch.io import load_asset, load_checkpoint, save_checkpoint
+with tempfile.TemporaryDirectory() as d:
+    obj = os.path.join(d, "tri.obj")
+    with open(obj, "w") as f:
+        f.write("v 0 0 0\\nv 0.5 0 0\\nv 0 0.5 0\\nf 1 2 3\\n")
+    n_shapes = len(r.scene.shapes)
+    load_asset(obj, r.scene, material=0)
+    assert len(r.scene.shapes) == n_shapes + 1 and r.scene.shapes[-1].n_triangles == 1
+    ckpt = os.path.join(d, "state.npz")
+    save_checkpoint(ckpt, r.state)
+    back = load_checkpoint(ckpt, device="cpu")
+    assert back.frame_idx == 1 and torch.equal(back.color, r.state.color)
+r.update_material(0, dataclasses.replace(r.scene.materials[0], colour=(0.9, 0.2, 0.2)))
+assert r.arrays.mat_colour[0, 1].item() == np.float32(0.2)
+assert np.isfinite(r.step().final.numpy()).all()
 assert not any(m in ("jax", "svgf_tpu") or m.startswith(("jax.", "jaxlib", "svgf_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("rendered without jax")
