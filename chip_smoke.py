@@ -87,6 +87,27 @@ Phases, each failing loudly (no phase catches an exception):
      1080p frames through K1-K4 and K6 with launch counts, K6 alone on its
      3R-lane call with its bound, and one frame of kernels against plain at
      480x270.
+ 14. gradients and the train steps (runs before 13): (a) the Cornell train
+     step at 1920x1080 (3 bounces MIS, 5 a-trous steps, TAA, fp32 state,
+     the plain filters: the filter kernels refuse autograd) with K5
+     picking the winners and torch recomputing t/u/v, over {mat_colour,
+     mat_emission, cam_frame} against a seeded target from a state one
+     frame warm: finite loss and gradients, a colour gradient for every
+     non-emissive material the camera sees, 8 K5 launches, forward,
+     backward and step ms, peak memory, two identical steps' largest
+     gradient difference, the step checkpointed (render_frame's
+     checkpoint=True) and through the plain intersector (checkpointed)
+     under the parity policy, the device kernels of the forward and the
+     backward; (b) finite differences at 480x270 at the JAX tests' steps
+     and bars (the camera's x and z translation on the interior-masked
+     loss; the white wall's albedo and the light's emission through (c)
+     the 4-frame orbit that differentiates through the carried state);
+     (d) the terrain's 1080p train step with K6 ({mat_colour, cam_frame}),
+     and at 480x270 against the plain walk under the parity policy; (e)
+     make_train_step and (f) make_tiled_train_step on one NCCL rank (a
+     1 x 1 tile mesh) against (a), and FRAMES tiled frames against the
+     unsharded ones; (g) a frame on the kernel route with mat_colour
+     requiring grad raises KernelAutogradError.
  13. scene I/O and edits (runs last: it moves the terrain's light):
      (a) the Cornell box at 1920x1080 through K1-K5, fp16 state, for 4
      frames, a wall recoloured by Renderer.update_material before frame 3
@@ -2087,6 +2108,481 @@ def check_scene_io_and_edits(stress, arrays) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 14. gradients and the train steps
+# ---------------------------------------------------------------------------
+
+GRAD_PARAMS = ("mat_colour", "mat_emission", "cam_frame")
+WHITE, RED, LIGHT = 0, 1, 3       # the Cornell box's material ids
+
+
+def grad_config(h, w, intersect: str = "on", bounces: int = 3, steps: int = 5):
+    """A differentiable frame's RenderConfig: the plain filters (the filter
+    kernels refuse autograd), the intersector's kernels or plain versions,
+    fp32 state, TRACE_CHUNKS lane chunks, TAA on."""
+    from svgf_tpu_torch.config import RenderConfig, SVGFConfig, TracingConfig
+
+    return RenderConfig(width=w, height=h, state_dtype="float32", keep_taps=False,
+                        use_pallas="off", use_pallas_intersect=intersect,
+                        trace_chunks=TRACE_CHUNKS, svgf=SVGFConfig(spatial_filter_steps=steps),
+                        tracing=TracingConfig(bounces=bounces))
+
+
+def with_camera(arrays, frame):
+    """The arrays with camera 0 at `frame`, standing still (cam_prev_frame
+    the same)."""
+    f = torch.as_tensor(np.asarray(frame), dtype=torch.float32, device=arrays.cam_frame.device)
+    cam, prev = arrays.cam_frame.clone(), arrays.cam_prev_frame.clone()
+    cam[0], prev[0] = f, f
+    return dataclasses.replace(arrays, cam_frame=cam, cam_prev_frame=prev)
+
+
+def seeded_target(h, w, part=None):
+    """The seeded target image (the whole frame's, or rows/columns `part`)."""
+    t = torch.as_tensor(np.random.default_rng(14).uniform(0, 1, (h, w, 3)),
+                        dtype=torch.float32, device=DEVICE)
+    return t if part is None else t[part].contiguous()
+
+
+def warm_state(arrays, config):
+    """The fp32 state after one frame from the initial state (no graph): a
+    step from it runs the temporal path."""
+    from svgf_tpu_torch.render.pipeline import render_frame
+    from svgf_tpu_torch.render.types import TemporalState
+
+    with torch.no_grad():
+        _, state = render_frame(arrays, TemporalState.initial(
+            config.height, config.width, torch.float32, DEVICE), config)
+    return state
+
+
+def train_step(arrays, state, config, params: dict, target, checkpoint: bool = False):
+    """The unsharded train step: render_frame with `params` in the arrays,
+    the loss mean((final - target)**2), its gradients. Returns (loss,
+    grads, the next state, {forward_ms, backward_ms, step_ms} by CUDA
+    events)."""
+    from svgf_tpu_torch.render.pipeline import render_frame
+
+    names = list(params)
+    leaves = [params[k].detach().clone().requires_grad_(True) for k in names]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    with torch.enable_grad():
+        out, new_state = render_frame(dataclasses.replace(arrays, **dict(zip(names, leaves))),
+                                      state, config, checkpoint=checkpoint)
+        loss = ((out.final - target) ** 2).mean()
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves)
+    ev[2].record()
+    torch.cuda.synchronize()
+    ms = {"forward_ms": ev[0].elapsed_time(ev[1]), "backward_ms": ev[1].elapsed_time(ev[2]),
+          "step_ms": ev[0].elapsed_time(ev[2])}
+    return loss.detach(), dict(zip(names, grads)), new_state, ms
+
+
+def peak_step(label, *args, **kw):
+    """train_step with the peak memory it allocated (MiB) and its times logged."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads, state, ms = train_step(*args, **kw)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"{label}: loss {float(loss):.6e}; forward {ms['forward_ms']:.3f} ms, backward "
+        f"{ms['backward_ms']:.3f} ms (x{ms['backward_ms'] / ms['forward_ms']:.2f}), step "
+        f"{ms['step_ms']:.3f} ms; peak memory {peak:.1f} MiB")
+    for name, g in grads.items():
+        assert bool(torch.isfinite(g).all()), f"{label}: non-finite gradient of {name}"
+    assert bool(torch.isfinite(loss)), f"{label}: non-finite loss"
+    return loss, grads, state, {**ms, "peak_mib": peak}
+
+
+def step_device_kernels(label, arrays, state, config, params, target) -> dict:
+    """The device kernels of one train step's forward and of its backward
+    (torch.profiler, one session each): counts, device ms and the top
+    operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from svgf_tpu_torch.render.pipeline import render_frame
+
+    names = list(params)
+    leaves = [params[k].detach().clone().requires_grad_(True) for k in names]
+    res = {}
+    with torch.enable_grad():
+        with profile(activities=[ProfilerActivity.CUDA]) as pf:
+            out, _ = render_frame(dataclasses.replace(arrays, **dict(zip(names, leaves))),
+                                  state, config)
+            loss = ((out.final - target) ** 2).mean()
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as pb:
+            torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+    for part, prof in (("forward", pf), ("backward", pb)):
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+        res[part] = {"device_kernels": len(events), "device_ms": busy}
+        log(f"{label} {part}: {len(events)} device kernels, {busy:.3f} ms of device time; top:")
+        top = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)[:6]
+        for e in top:
+            log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    return res
+
+
+def max_grad_diff(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def check_cornell_train_step() -> dict:
+    """(a) The Cornell train step at 1920x1080: K5 picks the winners and
+    torch recomputes t/u/v; launches, finite and useful gradients, two
+    identical steps, the peak memory with and without checkpointing, the
+    device kernels of the forward and the backward, and the same step
+    through the plain intersector on the card (checkpointed: its dense
+    sweep keeps (lanes x triangles) temporaries) under the parity policy."""
+    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
+    from svgf_tpu_torch.parallel.checks import assert_sharded_parity
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    cfg = grad_config(H, W)
+    arrays = with_camera(cornell_box(aspect=W / H).flatten(device=DEVICE), cornell_orbit(1))
+    params = {k: getattr(arrays, k) for k in GRAD_PARAMS}
+    state, target = warm_state(arrays, cfg), seeded_target(H, W)
+
+    reset_launches()
+    loss, grads, new_state, ms = peak_step("(a) Cornell 1080p train step, K5", arrays, state, cfg,
+                                           params, target)
+    launches = dict(LAUNCHES)
+    expect = dict.fromkeys(LAUNCHES, 0)
+    expect["intersect_dense"] = TRACE_CHUNKS * (1 + cfg.tracing.bounces)
+    log(f"(a) launches in the train step: {launches}")
+    assert launches == expect, (launches, expect)
+    seen = [int(m) for m in new_state.gbuffer.material.unique() if int(m) >= 0]
+    dark = [m for m in seen if float(arrays.mat_emission[m].max()) == 0.0]
+    zero = [m for m in dark if float(grads["mat_colour"][m].abs().max()) == 0.0]
+    log(f"(a) materials the camera sees {seen}; colour gradient's largest entry each: "
+        f"{[float(grads['mat_colour'][m].abs().max()) for m in seen]}")
+    assert dark and not zero, f"materials seen without a colour gradient: {zero}"
+
+    loss2, grads2, _, ms2 = peak_step("(a) the same step again", arrays, state, cfg, params, target)
+    log(f"(a) two identical steps: loss difference {float((loss - loss2).abs()):.3e}, largest "
+        f"gradient difference {max_grad_diff(grads, grads2):.3e} (the gathers' backward adds "
+        "in an order the card picks)")
+    lc, gc, _, msc = peak_step("(a) checkpointed step", arrays, state, cfg, params, target,
+                               checkpoint=True)
+    assert_sharded_parity("checkpointed step against the step", lc, gc, loss, grads)
+    kernels = step_device_kernels("(a) Cornell 1080p train step", arrays, state, cfg, params,
+                                  target)
+    plain_cfg = grad_config(H, W, intersect="off")
+    lp, gp, _, msp = peak_step("(a) the step through the plain intersector, checkpointed",
+                               arrays, state, plain_cfg, params, target, checkpoint=True)
+    assert_sharded_parity("K5 step against the plain intersector's", loss, grads, lp, gp)
+    log(f"(a) K5 step against the plain intersector's: loss {float(loss):.6e} / "
+        f"{float(lp):.6e}, largest gradient difference {max_grad_diff(grads, gp):.3e}")
+    return {"arrays": arrays, "state": state, "target": target, "loss": loss, "grads": grads,
+            "launches": launches["intersect_dense"],
+            "summary": {"step": ms, "again": ms2, "checkpointed": msc, "plain": msp,
+                        "kernels": kernels, "repeat_max_grad_diff": max_grad_diff(grads, grads2)}}
+
+
+def interior_mask(arrays, h, w):
+    """tests/test_camera_grad.py interior_mask: pixels at least 2 px from an
+    instance or depth edge at the base camera, (h, w, 1)."""
+    from svgf_tpu_torch.render.gbuffer import raster_gbuffer
+
+    with torch.no_grad():
+        g0 = raster_gbuffer(arrays, 0, h, w, mode="on")
+    inst, depth = g0.instance.cpu().numpy(), g0.depth.cpu().numpy()
+    edge = np.zeros((h, w), bool)
+    edge[:, 1:] |= inst[:, 1:] != inst[:, :-1]
+    edge[:, :-1] |= inst[:, 1:] != inst[:, :-1]
+    edge[1:, :] |= inst[1:, :] != inst[:-1, :]
+    edge[:-1, :] |= inst[1:, :] != inst[:-1, :]
+    edge[:, 1:] |= np.abs(depth[:, 1:] - depth[:, :-1]) > 0.1
+    edge[1:, :] |= np.abs(depth[1:, :] - depth[:-1, :]) > 0.1
+    for _ in range(2):
+        e2 = edge.copy()
+        e2[1:, :] |= edge[:-1, :]
+        e2[:-1, :] |= edge[1:, :]
+        e2[:, 1:] |= edge[:, :-1]
+        e2[:, :-1] |= edge[:, 1:]
+        edge = e2
+    return torch.as_tensor(~edge, dtype=torch.float32, device=DEVICE)[..., None]
+
+
+def fd_check(label, loss, x, idx, eps: float, analytic: float, bar: float, floor: float):
+    """Central difference of loss(x) at x[idx] against `analytic`."""
+    with torch.no_grad():
+        xp, xm = x.clone(), x.clone()
+        xp[idx] += eps
+        xm[idx] -= eps
+        fd = (float(loss(xp)) - float(loss(xm))) / (2 * eps)
+    rel = abs(fd - analytic) / max(abs(fd), abs(analytic), floor)
+    log(f"(b) {label}: finite difference {fd:.6e}, autograd {analytic:.6e}, relative {rel:.4f} "
+        f"(bar {bar})")
+    assert rel < bar, (label, fd, analytic)
+    return rel
+
+
+# the camera FD's view: 0.2 rad round the box and 0.05 up, where the x
+# translation's derivative is no near-cancellation of the box's mirror halves
+FD_POSE_ANGLES = (0.2, 0.05)
+
+
+def frame_final(arrays, config, cam_frame):
+    from svgf_tpu_torch.render.pipeline import render_frame
+    from svgf_tpu_torch.render.types import TemporalState
+
+    out, _ = render_frame(dataclasses.replace(arrays, cam_frame=cam_frame),
+                          TemporalState.initial(config.height, config.width, torch.float32,
+                                                DEVICE), config)
+    return out.final
+
+
+def camera_fd(label, arrays, config, comp: int, held: bool) -> float:
+    """tests/test_camera_grad.py's check of one camera translation: the
+    central difference (step 1e-3) of the masked loss mean(mask * final**2)
+    against autograd. At 480x270 and 1 spp a 1e-3 move also flips some
+    shadow and bounce rays past an occluder's edge (a jump the pathwise
+    gradient leaves out, as it leaves out the silhouettes the interior
+    mask drops): with `held`, the mask also drops each pixel whose two
+    one-sided differences disagree (a jump on one side) and the check
+    holds the result to the bar 0.15; without, it only logs the interior
+    mask's numbers."""
+    h, w, eps = config.height, config.width, 1e-3
+    interior = interior_mask(arrays, h, w)
+    with torch.no_grad():
+        shifted = []
+        for sign in (1.0, -1.0):
+            cf = arrays.cam_frame.clone()
+            cf[0, comp, 3] += sign * eps
+            shifted.append(frame_final(arrays, config, cf))
+        f0 = frame_final(arrays, config, arrays.cam_frame)
+    up, down = shifted[0] - f0, f0 - shifted[1]
+    jump = ((up - down).abs() > 0.5 * (up.abs() + down.abs()) + 1e-6).any(-1, keepdim=True)
+    mask = interior * (~jump).float() if held else interior
+    loss = lambda f: float((mask * f ** 2).sum() / mask.sum())
+    fd = (loss(shifted[0]) - loss(shifted[1])) / (2 * eps)
+    cf = arrays.cam_frame.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad((mask * frame_final(arrays, config, cf) ** 2).sum() / mask.sum(),
+                               [cf])
+    analytic = float(g[0, comp, 3])
+    rel = abs(fd - analytic) / max(abs(fd), abs(analytic), 1e-6)
+    log(f"(b) camera {'xyz'[comp]} translation, {label}: {int(mask.sum())} pixels "
+        f"({int((interior * jump).sum())} interior pixels jump), finite difference {fd:.6e}, autograd {analytic:.6e}, "
+        f"relative {rel:.4f}" + (" (bar 0.15)" if held else " (not held: interior mask only)"))
+    if held:
+        assert rel < 0.15, (label, comp, fd, analytic)
+    return rel
+
+
+def orbit_poses(n: int):
+    """tests/test_orbit_grad.py's poses: 0.03 rad a frame round the box."""
+    from svgf_tpu_torch.core.camera import look_at_frame
+
+    return [np.asarray(look_at_frame(eye=[3.4 * np.sin(0.03 * k), 0.0, 3.4 * np.cos(0.03 * k)],
+                                     target=[0, 0, 0]), np.float32) for k in range(n)]
+
+
+def check_fd_and_orbit() -> dict:
+    """(b) Finite differences on the card at 480x270 (tests/test_camera_grad
+    and test_orbit_grad's configurations, steps and bars) and (c) the
+    4-frame orbit that differentiates through the carried state."""
+    from svgf_tpu_torch.core.camera import orbit_frame
+    from svgf_tpu_torch.render.pipeline import render_frame
+    from svgf_tpu_torch.render.types import TemporalState
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    h, w = SMALL_H, SMALL_W
+    arrays = cornell_box(aspect=w / h).flatten(device=DEVICE)
+    theta, phi = FD_POSE_ANGLES
+    side = orbit_frame([0.0, 0.0, 0.0], 3.4, theta=theta, phi=phi)
+    res = {}
+    # the camera: one frame, x and z translation, the masked loss
+    cfg1 = grad_config(h, w, bounces=1, steps=1)
+    for label, pose, held in (("the tests' pose", None, False), ("a side view", side, True)):
+        a = arrays if pose is None else with_camera(arrays, pose)
+        for comp in (0, 2):
+            rel = camera_fd(label, a, cfg1, comp, held)
+            if held:
+                res[f"camera_{'xyz'[comp]}"] = rel
+
+    # (c) the orbit: 4 frames, 2 bounces, the state carried
+    cfg2 = grad_config(h, w, bounces=2, steps=1)
+    poses = [torch.as_tensor(p, device=DEVICE) for p in orbit_poses(FRAMES)]
+
+    def orbit_loss(mat_colour, mat_emission, cam_delta):
+        state = TemporalState.initial(h, w, torch.float32, DEVICE)
+        shift = torch.cat([torch.cat([torch.zeros(3, 3, device=DEVICE), cam_delta[:, None]], 1),
+                           torch.zeros(1, 4, device=DEVICE)])
+        out = None
+        for k in range(FRAMES):
+            sc = dataclasses.replace(arrays, mat_colour=mat_colour, mat_emission=mat_emission,
+                                     cam_frame=(poses[k] + shift)[None],
+                                     cam_prev_frame=(poses[max(k - 1, 0)] + shift)[None])
+            out, state = render_frame(sc, state, cfg2)
+        return (out.final ** 2).mean()
+
+    leaves = [arrays.mat_colour.clone().requires_grad_(True),
+              arrays.mat_emission.clone().requires_grad_(True),
+              torch.zeros(3, device=DEVICE, requires_grad=True)]
+    t0 = time.perf_counter()
+    g_col, g_emi, g_cam = torch.autograd.grad(orbit_loss(*leaves), leaves)
+    torch.cuda.synchronize()
+    log(f"(c) orbit, {FRAMES} frames at {w}x{h} through the carried state: "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms; largest gradient of mat_colour "
+        f"{float(g_col.abs().max()):.4e}, mat_emission {float(g_emi.abs().max()):.4e}, "
+        f"camera {g_cam.tolist()}")
+    for name, gg in (("mat_colour", g_col), ("mat_emission", g_emi), ("camera", g_cam)):
+        assert bool(torch.isfinite(gg).all()), f"(c) non-finite {name} gradient"
+        assert float(gg.abs().max()) > 0, f"(c) {name} gradient identically zero"
+    assert bool((g_col.abs().amax(1)[:3] > 0).all()), "(c) a wall without colour gradient"
+    zero3 = torch.zeros(3, device=DEVICE)
+    res["mat_colour"] = fd_check(
+        "white wall's red albedo", lambda x: orbit_loss(x, arrays.mat_emission, zero3),
+        arrays.mat_colour, (WHITE, 0), 1e-3, float(g_col[WHITE, 0]), 0.08, 1e-7)
+    res["mat_emission"] = fd_check(
+        "light's red emission", lambda x: orbit_loss(arrays.mat_colour, x, zero3),
+        arrays.mat_emission, (LIGHT, 0), 1e-2, float(g_emi[LIGHT, 0]), 0.08, 1e-7)
+    return res
+
+
+def check_terrain_train_step(arrays) -> dict:
+    """(d) The terrain's train step: K6 picks the winners at 1920x1080
+    ({mat_colour, cam_frame}), and at 480x270 the same step against the
+    plain scene-BVH walk under the parity policy."""
+    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
+    from svgf_tpu_torch.parallel.checks import assert_sharded_parity
+
+    arrays = with_camera(arrays, stress_orbit(1))
+    names = ("mat_colour", "cam_frame")
+    params = {k: getattr(arrays, k) for k in names}
+    cfg = grad_config(H, W)
+    state = warm_state(arrays, cfg)
+    reset_launches()
+    peak_step("(d) terrain 1080p train step, K6", arrays, state, cfg, params, seeded_target(H, W))
+    launches = dict(LAUNCHES)
+    expect = dict.fromkeys(LAUNCHES, 0)
+    expect["intersect_clustered"] = TRACE_CHUNKS * (1 + cfg.tracing.bounces)
+    log(f"(d) launches in the train step: {launches}")
+    assert launches == expect, (launches, expect)
+    _, _, _, ms = peak_step("(d) the same step again", arrays, state, cfg, params,
+                            seeded_target(H, W))
+    small = {}
+    for intersect in ("on", "off"):
+        c = grad_config(SMALL_H, SMALL_W, intersect=intersect)
+        small[intersect] = train_step(arrays, warm_state(arrays, c), c, params,
+                                      seeded_target(SMALL_H, SMALL_W))
+    (lk, gk, _, _), (lp, gp, _, _) = small["on"], small["off"]
+    assert_sharded_parity("terrain 480x270, K6 against the plain walk", lk, gk, lp, gp)
+    log(f"(d) 480x270, K6 against the plain walk: loss {float(lk):.6e} / {float(lp):.6e}, "
+        f"largest gradient difference {max_grad_diff(gk, gp):.3e}")
+    return {"launches": launches["intersect_clustered"], "step": ms}
+
+
+def check_mesh_train_steps(cornell: dict) -> dict:
+    """(e) make_train_step on one NCCL rank and (f) make_tiled_step and
+    make_tiled_train_step on a 1 x 1 tile mesh of it, at 1920x1080: the
+    train steps against (a) under the parity policy, FRAMES tiled frames
+    against the unsharded frames with the same filters and K5."""
+    import torch.distributed as dist
+
+    from svgf_tpu_torch.parallel import (
+        init_distributed, make_row_mesh, make_tile_mesh, make_tiled_step,
+        make_tiled_train_step, make_train_step,
+    )
+    from svgf_tpu_torch.parallel.checks import assert_sharded_parity
+    from svgf_tpu_torch.render.pipeline import Renderer, render_frame
+    from svgf_tpu_torch.render.types import TemporalState
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(free_port()))
+    device = init_distributed()
+    cfg = grad_config(H, W)
+    arrays, state, target = cornell["arrays"], cornell["state"], cornell["target"]
+    params = {k: getattr(arrays, k) for k in GRAD_PARAMS}
+    res = {}
+    try:
+        log(f"(e, f) one rank, backend {dist.get_backend()} on {device}")
+        for label, mesh, make in (("(e) row mesh", make_row_mesh(), make_train_step),
+                                  ("(f) 1 x 1 tile mesh", make_tile_mesh(1, 1),
+                                   make_tiled_train_step)):
+            step = make(cfg, mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, grads, _ = step(params, arrays, state, target)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            assert_sharded_parity(label, loss, grads, cornell["loss"], cornell["grads"])
+            log(f"{label} train step: {ms:.1f} ms, peak {peak:.1f} MiB, loss {float(loss):.6e}, "
+                f"largest gradient difference from (a) {max_grad_diff(grads, cornell['grads']):.3e}")
+            res[label] = {"ms": ms, "peak_mib": peak}
+
+        # (f) the tiled frames against the unsharded route with the same filters and K5
+        frames_cfg = dataclasses.replace(cfg, state_dtype="float16")
+        tiled = make_tiled_step(frames_cfg, make_tile_mesh(1, 1))
+        holder = Renderer(cornell_box(aspect=W / H), frames_cfg, device=DEVICE)   # the camera
+        st_t = TemporalState.initial(H, W, torch.float16, DEVICE)
+        st_u = TemporalState.initial(H, W, torch.float16, DEVICE)
+        worst = 0.0
+        with torch.no_grad():
+            for f in range(FRAMES):
+                if cornell_orbit(f) is not None:
+                    holder.update_camera(cornell_orbit(f))
+                out_t, st_t = tiled(holder.arrays, st_t)
+                out_u, st_u = render_frame(holder.arrays, st_u, frames_cfg)
+                worst = max(worst, float((out_t.final - out_u.final).abs().max()))
+        log(f"(f) {FRAMES} tiled frames (1 x 1, plain filters, K5) against the unsharded "
+            f"route's: max abs error {worst:.3e} (bar 2e-5)")
+        assert worst <= 2e-5, worst
+        res["tiled_frames_max_err"] = worst
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+def check_filter_kernels_refuse_grad() -> str:
+    """(g) Fault 9: a frame on the kernel route (use_pallas="on") with
+    mat_colour requiring grad raises KernelAutogradError at the first
+    filter stage, never a result without its gradient."""
+    from svgf_tpu_torch.kernels.filter import KernelAutogradError, refuse_autograd
+    from svgf_tpu_torch.render.pipeline import render_frame
+    from svgf_tpu_torch.render.types import TemporalState
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    cfg = dataclasses.replace(grad_config(SMALL_H, SMALL_W), use_pallas="on")
+    arrays = cornell_box(aspect=W / H).flatten(device=DEVICE)
+    colour = arrays.mat_colour.clone().requires_grad_(True)
+    probe = torch.zeros(1, requires_grad=True)
+    try:
+        refuse_autograd("temporal_filter", probe)
+    except KernelAutogradError as e:
+        want = str(e)
+    try:
+        with torch.enable_grad():
+            render_frame(dataclasses.replace(arrays, mat_colour=colour),
+                         TemporalState.initial(SMALL_H, SMALL_W, torch.float32, DEVICE), cfg)
+    except KernelAutogradError as e:
+        assert str(e) == want, (str(e), want)
+        log(f"(g) the kernel route refused autograd: {e}")
+        return str(e)
+    raise AssertionError("(g) the kernel route returned a frame from inputs that require grad")
+
+
+def check_gradients(arrays) -> dict:
+    """Phase 14: gradients and the train steps (a)-(g)."""
+    cornell = check_cornell_train_step()
+    res = {"cornell": cornell["summary"], "fd": check_fd_and_orbit(),
+           "terrain": check_terrain_train_step(arrays),
+           "mesh": check_mesh_train_steps(cornell), "refusal": check_filter_kernels_refuse_grad()}
+    log("phase 14: " + json.dumps(res))
+    return {"intersect_dense": cornell["launches"],
+            "intersect_clustered": res["terrain"]["launches"]}
+
+
 def compare_times() -> dict:
     """The times the redesigns of K2/K8, K6 and K4/K10 should move, measured
     on the tree of the port that is imported, with only the wrappers'
@@ -2202,6 +2698,7 @@ def main() -> int:
     phase("nested scene", check_nested_scene)
     phase("materials", check_materials_path, stress, arrays, matte)
     phase("K2 designs", lambda: check_moments_designs(moments_design_cases(stress)))
+    train_launches = phase("gradients and train steps", check_gradients, arrays)
     # last: it moves the terrain's light
     phase("scene I/O and edits", check_scene_io_and_edits, stress, arrays)
 
@@ -2210,7 +2707,8 @@ def main() -> int:
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **{k: timed[name][k] for k in keys},
-         **{k: timed[name][k] for k in ("yardstick_bound_ms", "yardstick_bound_by") if k in timed[name]}}
+         **{k: timed[name][k] for k in ("yardstick_bound_ms", "yardstick_bound_by") if k in timed[name]},
+         **({"train_step_launches": train_launches[name]} if name in train_launches else {})}
         for name, src, rep in KERNELS
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels

@@ -8,7 +8,9 @@ its values and dtype unchanged, the large-scene ones (cluster bounds,
 `wbvh_*`) too. Both packages then compute on identical inputs, which is
 what the tests compare. For the row-sharded route, `temporal_state_band`
 cuts such a state into one rank's band and `stack_bands` puts the ranks'
-bands of any record back together.
+bands of any record back together. `params` and `params_numpy` carry a
+train step's parameter dict (svgf_tpu's `init_params`, as NumPy) across
+and the port's gradients back.
 """
 
 from __future__ import annotations
@@ -70,3 +72,15 @@ def stack_bands(bands):
     if isinstance(first, tuple) and hasattr(first, "_fields"):
         return type(first)(*(stack_bands([getattr(b, f) for b in bands]) for f in first._fields))
     return first
+
+
+def params(p: dict, device="cuda") -> dict:
+    """svgf_tpu's parameter dict (field name -> array, e.g. its
+    `init_params`) as the port's tensors on `device`."""
+    return {name: _tensor(v, device) for name, v in p.items()}
+
+
+def params_numpy(p: dict) -> dict:
+    """The port's parameter or gradient dict as NumPy arrays, to compare
+    with svgf_tpu's."""
+    return {name: t.detach().cpu().numpy() for name, t in p.items()}

@@ -34,6 +34,13 @@ whole frame's. They count their launches under their own names.
 All of them are stencils or gathers over a few dozen bytes per pixel, so
 the card's memory bandwidth bounds them; each source's header says what
 its design does about that.
+
+The kernels are forward-only, as svgf_tpu's Pallas kernels are (a
+reverse-mode jax.grad through a pallas_call raises). Given CUDA tensors
+of which one requires grad while autograd records, a wrapper raises
+KernelAutogradError (`refuse_autograd`) instead of returning a result
+without a graph: gradients take use_pallas="off" (the plain filters) with
+use_pallas_intersect="on" (K5/K6 pick the winners).
 """
 
 from __future__ import annotations
@@ -46,13 +53,28 @@ from svgf_tpu_torch.render import svgf
 from svgf_tpu_torch.render.svgf import BOUND_X, BOUND_Y, TemporalResult
 from svgf_tpu_torch.render.types import GBuffer
 
-__all__ = ["LAUNCHES", "reset_launches", "temporal_filter", "filter_moments",
-           "wavelet_filter", "taa", "temporal_filter_band", "filter_moments_band",
-           "atrous_iteration", "taa_band"]
+__all__ = ["LAUNCHES", "KernelAutogradError", "refuse_autograd", "reset_launches",
+           "temporal_filter", "filter_moments", "wavelet_filter", "taa",
+           "temporal_filter_band", "filter_moments_band", "atrous_iteration", "taa_band"]
 
 # the state types the kernels read (the suffix of their entry points):
 # every state_dtype that render/pipeline.py STATE_DTYPES offers
 _STATE_TYPES = {torch.float32: "f32", torch.float16: "f16", torch.bfloat16: "bf16"}
+
+
+class KernelAutogradError(RuntimeError):
+    """A filter kernel was given inputs that autograd tracks."""
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise KernelAutogradError when autograd records and one of `tensors`
+    requires grad: a kernel's output would carry no graph, and the
+    gradient through the stage would be lost without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise KernelAutogradError(
+            f"{name}: the filter kernels are forward-only and an input requires grad; "
+            "differentiate with use_pallas='off' (the plain filters) and "
+            "use_pallas_intersect='on' (K5/K6 pick the winners)")
 
 
 def _normal_squarings(phi_normal: float) -> int:
@@ -123,6 +145,7 @@ def temporal_filter(current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer, prev
     if on_cpu(*_temporal_tensors(*args)):
         return svgf.temporal_filter(*args, depth_threshold, normal_threshold,
                                     history_base_length)
+    refuse_autograd("temporal_filter", *_temporal_tensors(*args))
     out = _launch_temporal("svgf_temporal", *args, depth_threshold, normal_threshold,
                            history_base_length, current.shape[0])
     LAUNCHES["temporal"] += 1
@@ -146,6 +169,7 @@ def temporal_filter_band(current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer,
     if on_cpu(*_temporal_tensors(*args)):
         return svgf.temporal_filter_band(*args, depth_threshold, normal_threshold,
                                          history_base_length, row0, h_total)
+    refuse_autograd("temporal_filter_band", *_temporal_tensors(*args))
     prev_rows = current.shape[0] + 2 * BOUND_Y
     out = _launch_temporal("svgf_temporal_band", *args, depth_threshold, normal_threshold,
                            history_base_length, prev_rows, row0, h_total, row0 - BOUND_Y,
@@ -194,6 +218,7 @@ def filter_moments(color, moments, gbuf: GBuffer, history_len, phi_colour: float
     filter their fallback pixels compacted into full warps."""
     if on_cpu(color, moments, history_len, gbuf.depth, gbuf.depth_deriv, gbuf.normal):
         return svgf.filter_moments(color, moments, gbuf, history_len, phi_colour, phi_normal)
+    refuse_autograd("filter_moments", color, moments, gbuf.depth, gbuf.depth_deriv, gbuf.normal)
     out = _launch_moments(color, moments, gbuf, history_len, phi_colour, phi_normal)
     LAUNCHES["moments"] += 1
     return out
@@ -211,6 +236,8 @@ def filter_moments_band(color, moments, gbuf: GBuffer, history_len, phi_colour: 
     (HWC input, zero-padded by 3); K2's bytes and operations."""
     if on_cpu(color, moments, history_len, gbuf.depth, gbuf.depth_deriv, gbuf.normal):
         return svgf.filter_moments(color, moments, gbuf, history_len, phi_colour, phi_normal)
+    refuse_autograd("filter_moments_band", color, moments, gbuf.depth, gbuf.depth_deriv,
+                    gbuf.normal)
     out = _launch_moments(color, moments, gbuf, history_len, phi_colour, phi_normal)
     LAUNCHES["moments_band"] += 1
     return out
@@ -266,6 +293,7 @@ def wavelet_filter(img, gbuf: GBuffer, steps: int, phi_colour: float, phi_normal
     taps read them there (`atrous_lattice_grid`)."""
     if on_cpu(img, gbuf.depth, gbuf.depth_deriv, gbuf.normal):
         return svgf.wavelet_filter(img, gbuf, steps, phi_colour, phi_normal)
+    refuse_autograd("wavelet_filter", img, gbuf.depth, gbuf.depth_deriv, gbuf.normal)
     _check_atrous(img, gbuf)
     bufs = [torch.empty_like(img) for _ in range(min(steps, 3))]
     feedback = prev = out = img
@@ -291,6 +319,7 @@ def atrous_iteration(img, gbuf: GBuffer, step: int, phi_colour: float, phi_norma
     one step of K3's bytes and operations, on K3's lattice grid."""
     if on_cpu(img, gbuf.depth, gbuf.depth_deriv, gbuf.normal):
         return svgf.atrous_iteration(img, gbuf, step, phi_colour, phi_normal)
+    refuse_autograd("atrous_iteration", img, gbuf.depth, gbuf.depth_deriv, gbuf.normal)
     _check_atrous(img, gbuf)
     out = torch.empty_like(img)
     _launch_atrous_step(img, out, gbuf, step, phi_colour, phi_normal)
@@ -326,6 +355,7 @@ def taa(filtered, history):
     the encoded values there."""
     if on_cpu(filtered, history):
         return svgf.taa(filtered, history)
+    refuse_autograd("taa", filtered, history)
     out = _launch_taa(filtered, history)
     LAUNCHES["taa"] += 1
     return out
@@ -341,6 +371,7 @@ def taa_band(filtered, history):
     edge-padded by 1); K4's bytes and operations."""
     if on_cpu(filtered, history):
         return svgf.taa(filtered, history)
+    refuse_autograd("taa_band", filtered, history)
     out = _launch_taa(filtered, history)
     LAUNCHES["taa_band"] += 1
     return out

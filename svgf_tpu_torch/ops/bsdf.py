@@ -19,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from svgf_tpu_torch.ops.geometry import (
-    PI, basis_from_z, dot, normalize, reflect, refract, safe_sqrt, sqrt,
+    PI, basis_from_z, dot, normalize, reflect, refract, safe_sqrt, sqrt, take_rows,
 )
 from svgf_tpu_torch.ops.sampling import sample_hemisphere_cosine, sample_hemisphere_cosine_pdf
 
@@ -50,11 +50,11 @@ def eval_material_point(scene, mat_idx, tex_colour=None, tex_emission=None,
     SceneMeta.textures_enabled. `tex_alpha`, the colour texture's alpha,
     folds into opacity (Common.cuh:1458)."""
     m = torch.clamp(mat_idx, 0, scene.mat_type.shape[0] - 1)
-    colour = scene.mat_colour[m]
-    emission = scene.mat_emission[m]
-    rough = scene.mat_roughness[m]
-    metal = scene.mat_metallic[m]
-    opacity = scene.mat_opacity[m]
+    colour = take_rows(scene.mat_colour, m)
+    emission = take_rows(scene.mat_emission, m)
+    rough = take_rows(scene.mat_roughness, m)
+    metal = take_rows(scene.mat_metallic, m)
+    opacity = take_rows(scene.mat_opacity, m)
     if tex_colour is not None:
         colour = colour * tex_colour
     if tex_emission is not None:

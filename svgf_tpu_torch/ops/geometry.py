@@ -85,10 +85,103 @@ def safe_sqrt(x):
     return _SafeSqrt.apply(x)
 
 
+def _needs_grad(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Clip(torch.autograd.Function):
+    """torch.clamp whose derivative at a bound is 1/2, as jnp.clip's,
+    jnp.maximum's and jnp.minimum's are (torch.clamp gives it all to x)."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        inside = torch.ones_like(x, dtype=torch.bool)
+        tie = torch.zeros_like(inside)
+        for b, beyond in ((lo, x > lo if lo is not None else None),
+                          (hi, x < hi if hi is not None else None)):
+            if b is not None:
+                inside = inside & beyond
+                tie = tie | (x == b)
+        # selects, not products: a NaN cotangent of a clamped lane stays out
+        return torch.where(inside, g, torch.where(tie, 0.5 * g, 0.0)), None, None
+
+
+def clip(x, lo=None, hi=None):
+    """torch.clamp(x, lo, hi) with svgf_tpu's derivative: 1/2 at a tie
+    with a bound (jnp.clip, or jnp.maximum/jnp.minimum with a constant).
+    Without autograd it is torch.clamp itself."""
+    if _needs_grad(x):
+        return _Clip.apply(x, lo, hi)
+    return torch.clamp(x, lo, hi)
+
+
+class _Abs(torch.autograd.Function):
+    """|x| whose derivative at 0 is 1, as jnp.abs's (torch.abs's is 0)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def abs_(x):
+    """torch.abs(x) with svgf_tpu's derivative (1 at 0). Without autograd
+    it is torch.abs itself."""
+    return _Abs.apply(x) if _needs_grad(x) else torch.abs(x)
+
+
+class _Div(torch.autograd.Function):
+    """x / y with the derivative in jax.lax.div's order: -g * x * y^-2.
+    torch's (-g * (x / y)) / y overflows to inf, and a zero cotangent then
+    gives NaN, where x is huge (the 1e30 depth sentinel) and y tiny."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        ctx.save_for_backward(x, y)
+        return x / y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        gx = (g / y).sum_to_size(x.shape) if ctx.needs_input_grad[0] else None
+        gy = ((-g * x) * torch.reciprocal(y * y)).sum_to_size(y.shape) \
+            if ctx.needs_input_grad[1] else None
+        return gx, gy
+
+
+def div(x, y):
+    """x / y with svgf_tpu's derivative. Without autograd it is x / y."""
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+        return _Div.apply(x, y)
+    return x / y
+
+
 def normalize(v, eps=0.0):
     if eps != 0.0:
         return v / torch.clamp_min(_norm(v), eps)
     return _Unit.apply(v)
+
+
+def take_rows(table, idx):
+    """table[idx]: the rows of a small table (the materials) for an integer
+    index per lane. index_select's backward adds with atomics, where the
+    backward of table[idx] (index_put_ with accumulate) sorts the lanes'
+    indices and adds each row's serially: 124 ms a call over 1080p's lanes
+    on the H100 (chip_smoke.py phase 14), the whole train step's backward."""
+    return table.index_select(0, idx.reshape(-1)).reshape(idx.shape + table.shape[1:])
 
 
 def transform_point(m, p):
@@ -214,14 +307,14 @@ def luminance(rgb):
 def to_srgb(c):
     """sRGB transfer (Filter.cuh:145-148); the power branch's base is
     clamped away from 0 so the untaken branch's gradient stays finite."""
-    c = torch.clamp_min(c, 0.0)
-    safe = torch.clamp_min(c, 0.0031308)
+    c = clip(c, 0.0)
+    safe = clip(c, 0.0031308)
     return torch.where(c <= 0.0031308, 12.92 * c, 1.055 * torch.pow(safe, 1.0 / 2.4) - 0.055)
 
 
 def from_srgb(c):
     """Common.cuh ToLinear (inverse sRGB)."""
-    safe = torch.clamp_min(c, 1e-4)
+    safe = clip(c, 1e-4)
     return torch.where(c <= 0.04045, c / 12.92, torch.pow((safe + 0.055) / 1.055, 2.4))
 
 

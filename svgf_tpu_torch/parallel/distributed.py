@@ -10,7 +10,9 @@ nothing configured is a no-op.
 
     torchrun --nproc-per-node=4 my_script.py     # calls init_distributed()
 
-`make_row_mesh()` then names this rank's place in the default group.
+`make_row_mesh()` then names this rank's place in the default group;
+`make_tile_mesh()` and `make_host_chip_mesh()` lay the group out as a
+2-D grid of tiles, process-major.
 """
 
 from __future__ import annotations
@@ -31,6 +33,52 @@ class RowMesh(NamedTuple):
 
     rank: int
     size: int
+
+
+class TileMesh(NamedTuple):
+    """A 2-D mesh over the default process group: `rows` x `cols` tiles,
+    process-major, so rank r holds tile (r // cols, r % cols): image rows
+    [iy * Hs, (iy + 1) * Hs) and columns [ix * Ws, (ix + 1) * Ws), with
+    Hs = H // rows and Ws = W // cols. `axes` names the two axes, as
+    svgf_tpu's mesh does."""
+
+    rank: int
+    rows: int
+    cols: int
+    axes: tuple = ("ty", "tx")
+
+    @property
+    def size(self) -> int:
+        return self.rows * self.cols
+
+    @property
+    def iy(self) -> int:
+        return self.rank // self.cols
+
+    @property
+    def ix(self) -> int:
+        return self.rank % self.cols
+
+
+def _group() -> tuple[int, int]:
+    """(rank, size) of the default process group; (0, 1) without one."""
+    if not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def make_tile_mesh(tiles_y: int, tiles_x: int, axes: tuple = ("ty", "tx")) -> TileMesh:
+    """The default process group as a tiles_y x tiles_x TileMesh
+    (svgf_tpu/parallel/tiled.py make_tile_mesh), rank-major, so the ranks
+    of one host span the x axis, as svgf_tpu's process-major devices do.
+    Raises unless the group has tiles_y * tiles_x ranks (one process per
+    device: svgf_tpu's mesh may take the first n of more devices, a
+    process group cannot)."""
+    rank, size = _group()
+    if tiles_y * tiles_x != size:
+        raise ValueError(f"a {tiles_y} x {tiles_x} mesh needs {tiles_y * tiles_x} ranks, "
+                         f"the group has {size}")
+    return TileMesh(rank=rank, rows=tiles_y, cols=tiles_x, axes=tuple(axes))
 
 
 def init_distributed(device: str | None = None, init_method: str | None = None,
@@ -68,6 +116,22 @@ def init_distributed(device: str | None = None, init_method: str | None = None,
 def make_row_mesh() -> RowMesh:
     """The row mesh over the default process group, or of one process
     when no group is initialised."""
-    if not dist.is_initialized():
-        return RowMesh(rank=0, size=1)
-    return RowMesh(rank=dist.get_rank(), size=dist.get_world_size())
+    rank, size = _group()
+    return RowMesh(rank=rank, size=size)
+
+
+def make_host_chip_mesh(hosts: int | None = None, chips_per_host: int | None = None,
+                        axes: tuple = ("host", "chip")) -> TileMesh:
+    """(host, chip) 2-D mesh over the default group
+    (svgf_tpu/parallel/distributed.py:54-75): torchrun numbers ranks
+    process-major, host by host, so each host's cards form one row of the
+    grid (the column axis stays on the host's NVLink, the row axis crosses
+    hosts). `chips_per_host` defaults to torchrun's LOCAL_WORLD_SIZE,
+    `hosts` to the group's size over it."""
+    _, size = _group()
+    if chips_per_host is None:
+        chips_per_host = int(os.environ.get("LOCAL_WORLD_SIZE", size if hosts is None
+                                            else size // hosts))
+    if hosts is None:
+        hosts = max(size // chips_per_host, 1)
+    return make_tile_mesh(hosts, chips_per_host, axes)

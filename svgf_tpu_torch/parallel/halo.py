@@ -1,19 +1,28 @@
-"""Row-halo exchange for row-sharded image stencils
-(svgf_tpu/parallel/halo.py).
+"""Halo exchange for sharded image stencils (svgf_tpu/parallel/halo.py),
+on a row mesh (RowMesh) or a 2-D tile mesh (TileMesh).
 
-A row band needs its neighbours' border rows before each stencil: 3 for
-the moments fallback, 2*step for an a-trous step, 1 for TAA, BOUND_Y for
-the motion-bounded reprojection. Rank i sends its bottom rows down to
-i+1 (they become i+1's top halo) and its top rows up to i-1, all tensors
-of one exchange in one `dist.batch_isend_irecv` of contiguous row slices.
+A band needs its neighbours' border rows before each stencil: 3 for the
+moments fallback, 2*step for an a-trous step, 1 for TAA, BOUND_Y for the
+motion-bounded reprojection; a tile needs their columns too. Rank i sends
+its last rows to the neighbour below (they become that rank's top halo)
+and its first rows to the one above; columns likewise to the right and
+left. All tensors of one exchange go in one `dist.batch_isend_irecv` of
+contiguous slices. The tile halo exchanges rows first and then columns of
+the row-extended tile, so the corners travel with the second exchange.
 
 Boundary policies, which make a band's stencil equal the whole frame's:
-  * "zero": the image's top and bottom get zero rows. The weighted filters
-    then weigh those taps 0 (a zero normal gives 0^phi_normal = 0), as the
-    whole frame's inside-masks do;
-  * "edge": they get the band's own edge row, repeated: the imageLoad
-    coordinate clamp (Filter.cuh:73-74) that TAA reads.
-With one rank nothing is sent: both halos are the boundary's.
+  * "zero": the image's border gets zero rows (columns). The weighted
+    filters then weigh those taps 0 (a zero normal gives 0^phi_normal =
+    0), as the whole frame's inside-masks do;
+  * "edge": it gets the band's own edge row (column), repeated: the
+    imageLoad coordinate clamp (Filter.cuh:73-74) that TAA reads.
+With one rank along an axis nothing is sent: both halos are the boundary's.
+
+Every exchange carries gradients (the transpose of svgf_tpu's ppermute):
+its backward sends the gradient of each received halo back to the rank
+that owns those rows or columns, which adds it into its edge rows or
+columns, in one batched exchange; at an "edge" border the repeated rows'
+gradient folds into the border row. Integer tensors carry none.
 """
 
 from __future__ import annotations
@@ -21,58 +30,161 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from svgf_tpu_torch.parallel.distributed import RowMesh
+from svgf_tpu_torch.parallel.collectives import as_tiles
 
 
-def _boundary(x, halo: int, boundary: str, top: bool):
+def _axis(mesh, dim: int):
+    """(position along the axis of image dim `dim`, ranks on it, rank
+    stride between neighbours) of this rank."""
+    m = as_tiles(mesh)
+    return (m.iy, m.rows, m.cols) if dim == 0 else (m.ix, m.cols, 1)
+
+
+def _boundary(x, halo: int, boundary: str, dim: int, first: bool):
     if boundary == "zero":
-        return torch.zeros_like(x[:halo])
+        return torch.zeros_like(x.narrow(dim, 0, halo))
     if boundary == "edge":
-        row = x[:1] if top else x[-1:]
-        return row.expand((halo,) + tuple(x.shape[1:])).contiguous()
+        edge = x.narrow(dim, 0 if first else x.shape[dim] - 1, 1)
+        shape = list(x.shape)
+        shape[dim] = halo
+        return edge.expand(shape).contiguous()
     raise ValueError(f"boundary must be 'zero' or 'edge', got {boundary!r}")
 
 
-def exchange_row_halos(tensors, halo: int, mesh: RowMesh, boundary: str = "zero"):
-    """[(top, bottom), ...]: `halo` rows from the bands above and below,
-    for each (Hs, ...) band tensor, in one batched exchange."""
-    n, i = mesh.size, mesh.rank
-    for x in tensors:
-        if x.shape[0] < halo:
-            raise ValueError(f"a band of {x.shape[0]} rows cannot send a {halo}-row halo")
-    out = [[_boundary(x, halo, boundary, True) if i == 0 else torch.empty_like(x[:halo]),
-            _boundary(x, halo, boundary, False) if i == n - 1 else torch.empty_like(x[:halo])]
-           for x in tensors]
-    ops = []
-    for x, (top, bot) in zip(tensors, out):
-        if i > 0:
-            ops += [dist.P2POp(dist.isend, x[:halo].contiguous(), i - 1),
-                    dist.P2POp(dist.irecv, top, i - 1)]
-        if i < n - 1:
-            ops += [dist.P2POp(dist.isend, x[-halo:].contiguous(), i + 1),
-                    dist.P2POp(dist.irecv, bot, i + 1)]
+def _buffer(like):
+    """A contiguous receive buffer (empty_like would keep a view's strides)."""
+    return torch.empty(like.shape, dtype=like.dtype, device=like.device)
+
+
+def _swap(sends, recvs) -> None:
+    """One batched exchange: sends [(tensor, peer)], recvs [(buffer, peer)]."""
+    ops = [dist.P2POp(dist.isend, t, p) for t, p in sends]
+    ops += [dist.P2POp(dist.irecv, b, p) for b, p in recvs]
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    return [tuple(pair) for pair in out]
 
 
-def exchange_row_halo(x, halo: int, mesh: RowMesh, boundary: str = "zero"):
-    """(top_halo, bottom_halo) of the (Hs, ...) band x."""
-    return exchange_row_halos([x], halo, mesh, boundary)[0]
+class _HaloExchange(torch.autograd.Function):
+    """The tensors extended by `halo` rows (dim 0) or columns (dim 1) of
+    the neighbours on each side."""
+
+    @staticmethod
+    def forward(ctx, spec, *tensors):
+        rank, pos, n, stride, halo, boundary, dim = spec
+        ctx.spec = spec
+        sends, recvs, out = [], [], []
+        for x in tensors:
+            if x.shape[dim] < halo:
+                raise ValueError(f"a tile of {x.shape[dim]} along dim {dim} "
+                                 f"cannot send a {halo}-wide halo")
+            lo = (_boundary(x, halo, boundary, dim, True) if pos == 0
+                  else _buffer(x.narrow(dim, 0, halo)))
+            hi = (_boundary(x, halo, boundary, dim, False) if pos == n - 1
+                  else _buffer(x.narrow(dim, 0, halo)))
+            if pos > 0:
+                sends.append((x.narrow(dim, 0, halo).contiguous(), rank - stride))
+                recvs.append((lo, rank - stride))
+            if pos < n - 1:
+                sends.append((x.narrow(dim, x.shape[dim] - halo, halo).contiguous(), rank + stride))
+                recvs.append((hi, rank + stride))
+            out.append((lo, x, hi))
+        _swap(sends, recvs)
+        out = [torch.cat(parts, dim=dim) for parts in out]
+        ctx.mark_non_differentiable(*[o for o in out if not o.is_floating_point()])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        rank, pos, n, stride, halo, boundary, dim = ctx.spec
+        sends, recvs, mids, out = [], [], [], []
+        for g, need in zip(grads, ctx.needs_input_grad[1:]):
+            if not need:
+                out.append(None)
+                continue
+            length = g.shape[dim] - 2 * halo
+            g_lo = g.narrow(dim, 0, halo)
+            g_hi = g.narrow(dim, halo + length, halo)
+            mid = g.narrow(dim, halo, length).contiguous().clone()
+            # the halo rows came from the neighbours: their gradient goes back
+            if pos > 0:
+                sends.append((g_lo.contiguous(), rank - stride))
+                recvs.append((_buffer(g_lo), rank - stride))
+            elif boundary == "edge":
+                mid.narrow(dim, 0, 1).add_(g_lo.sum(dim, keepdim=True))
+            if pos < n - 1:
+                sends.append((g_hi.contiguous(), rank + stride))
+                recvs.append((_buffer(g_hi), rank + stride))
+            elif boundary == "edge":
+                mid.narrow(dim, length - 1, 1).add_(g_hi.sum(dim, keepdim=True))
+            mids.append((mid, pos > 0, pos < n - 1, len(recvs)))
+            out.append(mid)
+        _swap(sends, recvs)
+        for mid, has_lo, has_hi, end in mids:
+            length = mid.shape[dim]
+            if has_hi:
+                mid.narrow(dim, length - halo, halo).add_(recvs[end - 1][0])
+            if has_lo:
+                mid.narrow(dim, 0, halo).add_(recvs[end - 1 - has_hi][0])
+        return (None, *out)
 
 
-def with_row_halo(x, halo: int, mesh: RowMesh, boundary: str = "zero"):
+def _with_halos(tensors, halo: int, mesh, boundary: str, dim: int):
+    if halo == 0:
+        return list(tensors)
+    pos, n, stride = _axis(mesh, dim)
+    spec = (as_tiles(mesh).rank, pos, n, stride, halo, boundary, dim)
+    return list(_HaloExchange.apply(spec, *tensors))
+
+
+def with_row_halos(tensors, halo: int, mesh, boundary: str = "zero"):
+    """Each (Hs, ...) band extended by `halo` rows from the bands above and
+    below, (Hs + 2*halo, ...), in one batched exchange."""
+    return _with_halos(tensors, halo, mesh, boundary, 0)
+
+
+def with_row_halo(x, halo: int, mesh, boundary: str = "zero"):
     """The band extended with exchanged halos: (Hs + 2*halo, ...)."""
-    top, bot = exchange_row_halo(x, halo, mesh, boundary)
-    return torch.cat([top, x, bot])
+    return with_row_halos([x], halo, mesh, boundary)[0]
 
 
-def with_row_halos(tensors, halo: int, mesh: RowMesh, boundary: str = "zero"):
-    """with_row_halo of several bands in one exchange."""
-    return [torch.cat([top, x, bot])
-            for x, (top, bot) in zip(tensors, exchange_row_halos(tensors, halo, mesh, boundary))]
+def exchange_row_halo(x, halo: int, mesh, boundary: str = "zero"):
+    """(top_halo, bottom_halo) of the (Hs, ...) band x."""
+    e = with_row_halo(x, halo, mesh, boundary)
+    return e[:halo], e[e.shape[0] - halo:]
+
+
+def with_col_halos(tensors, halo: int, mesh, boundary: str = "zero"):
+    """Column twin of with_row_halos: (Hs, Ws + 2*halo, ...) tiles."""
+    return _with_halos(tensors, halo, mesh, boundary, 1)
+
+
+def with_col_halo(x, halo: int, mesh, boundary: str = "zero"):
+    """The tile extended with exchanged column halos: (Hs, Ws + 2*halo, ...)."""
+    return with_col_halos([x], halo, mesh, boundary)[0]
+
+
+def exchange_col_halo(x, halo: int, mesh, boundary: str = "zero"):
+    """(left_halo, right_halo) of the (Hs, Ws, ...) tile x, each `halo`
+    columns wide."""
+    e = with_col_halo(x, halo, mesh, boundary)
+    return e[:, :halo], e[:, e.shape[1] - halo:]
+
+
+def with_tile_halos(tensors, halo: int, mesh, boundary: str = "zero"):
+    """2-D halos: rows first, then columns of the row-extended tiles, so the
+    corner blocks arrive with the second exchange."""
+    return with_col_halos(with_row_halos(tensors, halo, mesh, boundary), halo, mesh, boundary)
+
+
+def with_tile_halo(x, halo: int, mesh, boundary: str = "zero"):
+    """The tile extended by `halo` on all four sides: (Hs + 2h, Ws + 2h, ...)."""
+    return with_tile_halos([x], halo, mesh, boundary)[0]
 
 
 def crop_halo(x, halo: int):
     return x[halo:-halo] if halo > 0 else x
+
+
+def crop_tile_halo(x, halo: int):
+    return x[halo:-halo, halo:-halo] if halo > 0 else x

@@ -27,6 +27,10 @@ gathers the whole image, computes it and keeps its band.
 
 With one rank nothing is sent: the halos are the image's boundary.
 
+Every collective carries gradients (parallel.collectives, parallel.halo),
+so `make_train_step` differentiates the frame on the plain route, where
+svgf_tpu's shard_map transposes its ppermute, all_gather and all_to_all.
+
     from svgf_tpu_torch.parallel import init_distributed, make_row_mesh, make_sharded_step
     device = init_distributed()                  # torchrun's variables
     mesh = make_row_mesh()
@@ -37,16 +41,19 @@ With one rank nothing is sent: the halos are the image's boundary.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.distributed as dist
 
 from svgf_tpu_torch.config import RenderConfig
 from svgf_tpu_torch.kernels import filter as K
 from svgf_tpu_torch.kernels import resolve_kernels
-from svgf_tpu_torch.ops.geometry import to_srgb
+from svgf_tpu_torch.ops.geometry import abs_, clip, to_srgb
 from svgf_tpu_torch.ops.intersect import Hit
 from svgf_tpu_torch.ops.keys import fold_in, key
 from svgf_tpu_torch.ops.sampling import RngStream
+from svgf_tpu_torch.parallel.collectives import all_to_all, gather_tiles
 from svgf_tpu_torch.parallel.distributed import RowMesh, make_row_mesh
 from svgf_tpu_torch.parallel.halo import crop_halo, with_row_halo, with_row_halos
 from svgf_tpu_torch.render import svgf
@@ -56,16 +63,14 @@ from svgf_tpu_torch.render.pipeline import STATE_DTYPES, _mark
 from svgf_tpu_torch.render.svgf import BOUND_Y
 from svgf_tpu_torch.render.types import FrameOutputs, GBuffer, TemporalState
 
-__all__ = ["make_row_mesh", "make_sharded_step", "render_frame_sharded", "gather_rows"]
+__all__ = ["make_row_mesh", "make_sharded_step", "render_frame_sharded", "gather_rows",
+           "make_train_step", "init_params"]
 
 
 def gather_rows(x, mesh: RowMesh):
-    """All-gather a row band (Hs, ...) into the full image (size*Hs, ...)."""
-    if mesh.size == 1:
-        return x
-    parts = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(parts, x.contiguous())
-    return torch.cat(parts)
+    """All-gather a row band (Hs, ...) into the full image (size*Hs, ...);
+    the gradient of the image goes back to the band's rows."""
+    return gather_tiles([x], mesh)[0]
 
 
 def _fields_gbuf(**fields) -> GBuffer:
@@ -144,19 +149,14 @@ def _interleave_a2a(mesh: RowMesh, hs: int, w: int):
     lane tensors."""
     n = mesh.size
 
-    def a2a(v):
-        out = torch.empty_like(v)
-        dist.all_to_all_single(out, v)
-        return out
-
     def fwd_leaf(x):
         ch = tuple(x.shape[1:])
         v = x.reshape((hs // n, n, w) + ch).transpose(0, 1).contiguous()
-        return a2a(v).reshape((hs * w,) + ch)
+        return all_to_all(v).reshape((hs * w,) + ch)
 
     def inv_leaf(x):
         ch = tuple(x.shape[1:])
-        v = a2a(x.reshape((n, hs // n, w) + ch).contiguous())
+        v = all_to_all(x.reshape((n, hs // n, w) + ch).contiguous())
         return v.transpose(0, 1).reshape((hs * w,) + ch)
 
     return (lambda xs: [fwd_leaf(x) for x in xs], lambda xs: [inv_leaf(x) for x in xs])
@@ -189,8 +189,8 @@ def _frame_body(scene, state: TemporalState, config: RenderConfig, mesh: RowMesh
     # first row ("edge" at the image's bottom is the unsharded clamp)
     z = gbuf.depth
     ze = with_row_halo(z, 1, mesh, "edge")[1:]
-    dzy = torch.abs(ze[1:] - ze[:-1])
-    dzx = torch.abs(torch.diff(z, dim=1, append=z[:, -1:]))
+    dzy = abs_(ze[1:] - ze[:-1])
+    dzx = abs_(torch.diff(z, dim=1, append=z[:, -1:]))
     gbuf = gbuf._replace(depth_deriv=torch.where(z > 0.0, torch.maximum(dzx, dzy), 0.0))
     _mark(events, "gbuffer")
 
@@ -261,7 +261,7 @@ def _frame_body(scene, state: TemporalState, config: RenderConfig, mesh: RowMesh
     if sv.enable_taa:
         final = _taa_band(atrous_out, state.taa_history, mesh, kernels)
     else:
-        rgb = torch.clamp(atrous_out[..., :3], 0.0, 1.0)
+        rgb = clip(atrous_out[..., :3], 0.0, 1.0)
         final = torch.cat([to_srgb(rgb), torch.ones_like(rgb[..., :1])], dim=-1)
     _mark(events, "taa")
 
@@ -295,3 +295,69 @@ def make_sharded_step(config: RenderConfig, mesh: RowMesh):
 
 def render_frame_sharded(scene, state: TemporalState, config: RenderConfig, mesh: RowMesh):
     return make_sharded_step(config, mesh)(scene, state)
+
+
+def _detached(x):
+    """A record (TemporalState, its GBuffer) with every tensor detached."""
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*map(_detached, x))
+    return x
+
+
+def train_step_of(frame, config: RenderConfig, size: int):
+    """train_step(params, scene, state, target) -> (loss, grads, new_state)
+    over `frame(scene, state) -> (outputs, state)`, one rank's part of a
+    sharded frame: the loss is the mean of (final - target)**2 over the
+    whole H x W x 3 image (each rank's sum, all-reduced), and the grads,
+    of the replicated params, are summed over the ranks (svgf_tpu gets both
+    from shard_map's psum). `target` is this rank's part of the image."""
+    n_total = config.height * config.width * 3
+
+    def train_step(params: dict, scene, state: TemporalState, target):
+        names = list(params)
+        leaves = [params[k].detach().requires_grad_(True) for k in names]
+        with torch.enable_grad():
+            out, new_state = frame(dataclasses.replace(scene, **dict(zip(names, leaves))), state)
+            if out.final.shape != target.shape:
+                raise ValueError(f"target {tuple(target.shape)}, this rank's image is "
+                                 f"{tuple(out.final.shape)}")
+            local = ((out.final - target) ** 2).sum() / n_total
+            grads = torch.autograd.grad(local, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+        loss = local.detach().clone()
+        if size > 1:
+            for t in (loss, *grads):
+                dist.all_reduce(t)
+        return loss, dict(zip(names, grads)), _detached(new_state)
+
+    return train_step
+
+
+def make_train_step(config: RenderConfig, mesh: RowMesh,
+                    param_fields: tuple = ("mat_colour", "mat_emission")):
+    """Differentiable sharded step (svgf_tpu/parallel/sharded.py:364-392):
+    `train_step(params, scene, state, target) -> (loss, grads, new_state)`,
+    the gradient of an image loss with respect to the SceneArrays fields
+    in `params` (made by `init_params`; replicated on every rank):
+
+      materials  "mat_colour", "mat_emission", "mat_roughness", ...
+      lights     "mat_emission" (area lights are emissive materials),
+                 "env_emission"
+      camera     "cam_frame" (ray generation is smooth; the hit choice is
+                 constant)
+
+    `state` and `target` are this rank's band; the loss and grads are the
+    whole image's on every rank. The filters are differentiable on the
+    plain route (use_pallas="off"), as in svgf_tpu; the kernel route's
+    filter wrappers refuse autograd (kernels.filter.refuse_autograd).
+    `param_fields` names the fields, as svgf_tpu's signature does."""
+    del param_fields  # the fields are the keys of `params`
+    return train_step_of(lambda scene, state: _frame_body(scene, state, config, mesh),
+                         config, mesh.size)
+
+
+def init_params(scene, param_fields: tuple = ("mat_colour", "mat_emission")) -> dict:
+    """The trainable fields for make_train_step."""
+    return {f: getattr(scene, f) for f in param_fields}

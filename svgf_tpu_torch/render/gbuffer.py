@@ -11,7 +11,9 @@ from __future__ import annotations
 
 import torch
 
-from svgf_tpu_torch.ops.geometry import MAX_LENGTH, normalize, transform_point, transform_vector
+from svgf_tpu_torch.ops.geometry import (
+    MAX_LENGTH, abs_, normalize, transform_point, transform_vector,
+)
 from svgf_tpu_torch.ops.intersect import Hit, intersect_scene
 from svgf_tpu_torch.ops.lights import interp
 from svgf_tpu_torch.render.types import GBuffer
@@ -141,8 +143,8 @@ def raster_gbuffer(scene, cam_idx: int, h: int, w: int, num_chunks: int = 1,
 
     z = z.reshape(h, w)
     # dFdx/dFdy analogue: forward differences, clamped at the border
-    dzx = torch.abs(torch.diff(z, dim=1, append=z[:, -1:]))
-    dzy = torch.abs(torch.diff(z, dim=0, append=z[-1:, :]))
+    dzx = abs_(torch.diff(z, dim=1, append=z[:, -1:]))
+    dzy = abs_(torch.diff(z, dim=0, append=z[-1:, :]))
     depth_deriv = torch.maximum(dzx, dzy)
 
     return GBuffer(

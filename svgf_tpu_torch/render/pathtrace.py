@@ -30,7 +30,8 @@ from svgf_tpu_torch.ops import bsdf as B
 from svgf_tpu_torch.ops import media as M
 from svgf_tpu_torch.ops import texture as T
 from svgf_tpu_torch.ops.geometry import (
-    MAX_LENGTH, dot, normalize, transform_direction, transform_point, transform_vector,
+    MAX_LENGTH, dot, normalize, take_rows, transform_direction, transform_point,
+    transform_vector,
 )
 from svgf_tpu_torch.ops.intersect import Hit, intersect_scene
 from svgf_tpu_torch.ops.keys import fold_in
@@ -93,7 +94,7 @@ def _emission_at_hit(scene, hit: Hit, outgoing):
                                    interp(scene.tri_nrm, prim, hit.u, hit.v)))
     flip = (dot(n, outgoing) < 0) & (scene.mat_type[mat] != B.GLASS)
     n = torch.where(flip[..., None], -n, n)
-    return torch.where((dot(n, outgoing) >= 0)[..., None], scene.mat_emission[mat], 0.0)
+    return torch.where((dot(n, outgoing) >= 0)[..., None], take_rows(scene.mat_emission, mat), 0.0)
 
 
 def _offset_origin(position, normal, incoming):
@@ -257,11 +258,15 @@ def make_block_order(h: int, w: int, bh: int = BLOCK_H, bw: int = BLOCK_W):
 def pathtrace_chunked(scene, ro, rd, key, bounces: int = 3, clamp: float = 10.0,
                       mode: SamplingMode = SamplingMode.MIS, first_hit: Hit | None = None,
                       num_chunks: int = 1, intersect_mode: str = "off", lane_ids=None,
-                      block_hw=None):
+                      block_hw=None, checkpoint: bool = False):
     """Run the wavefront in `num_chunks` sequential lane chunks: peak memory
     scales with the live lane count. Lanes keep their global ids, so the
     result equals the unchunked one. Padding lanes repeat the last ray and
     count in rays_traced, as in svgf_tpu.
+
+    checkpoint: each chunk runs under torch.utils.checkpoint, so autograd
+    keeps a chunk's inputs and traces it again in the backward pass (the
+    same draws: they hash the lane ids) instead of keeping its graph.
 
     block_hw=(h, w): the lanes are an (h, w) image in row-major order; they
     are traced in 64x64 pixel blocks (make_block_order) and returned in
@@ -277,7 +282,7 @@ def pathtrace_chunked(scene, ro, rd, key, bounces: int = 3, clamp: float = 10.0,
         rad, nrays = pathtrace_chunked(
             scene, fwd(ro), fwd(rd), key, bounces, clamp, mode,
             None if first_hit is None else Hit(*map(fwd, first_hit)),
-            num_chunks, intersect_mode, lane_ids=fwd(lane_ids),
+            num_chunks, intersect_mode, lane_ids=fwd(lane_ids), checkpoint=checkpoint,
         )
         return inv(rad), nrays
     num_chunks = max(num_chunks, 1)
@@ -289,11 +294,13 @@ def pathtrace_chunked(scene, ro, rd, key, bounces: int = 3, clamp: float = 10.0,
     rads, nrays = [], 0
     for k in range(num_chunks):
         s = slice(k * rc, (k + 1) * rc)
-        rad, nr = pathtrace(
+        run = lambda s=s: pathtrace(
             scene, ro[s], rd[s], key, lane_ids[s], bounces, clamp, mode,
             None if first_hit is None else first_hit.chunk(s.start, s.stop),
             intersect_mode,
         )
+        rad, nr = torch.utils.checkpoint.checkpoint(run, use_reentrant=False) if checkpoint \
+            else run()
         rads.append(rad)
         nrays = nrays + nr
     return torch.cat(rads)[:R], nrays
@@ -462,7 +469,7 @@ def _bounce_mis(scene, state: PathState, hit: Hit, rng: RngStream, intersect_mod
         emis_b = torch.zeros((R, 3), device=position.device)
     # raw Material.Emission at the hit — no orientation test (:276)
     hm = torch.clamp(mis_hit.material, 0, scene.mat_type.shape[0] - 1)
-    emis_b = torch.where(mis_miss[..., None], emis_b, scene.mat_emission[hm])
+    emis_b = torch.where(mis_miss[..., None], emis_b, take_rows(scene.mat_emission, hm))
     radiance = radiance + torch.where(
         mis_cond[..., None], weight * bsdf_b * emis_b * misw_b[..., None], 0.0
     )

@@ -27,7 +27,7 @@ from svgf_tpu_torch.config import DebugOutput, RenderConfig
 from svgf_tpu_torch.core import edits
 from svgf_tpu_torch.core.scene import target_device
 from svgf_tpu_torch.kernels import resolve_kernels
-from svgf_tpu_torch.ops.geometry import to_srgb
+from svgf_tpu_torch.ops.geometry import clip, to_srgb
 from svgf_tpu_torch.ops.keys import fold_in, key
 from svgf_tpu_torch.ops.sampling import RngStream
 from svgf_tpu_torch.render import svgf
@@ -58,12 +58,13 @@ def _filter_stages(device, config: RenderConfig):
 
 
 def filter_chain(radiance, gbuf, state: TemporalState, config: RenderConfig,
-                 events: dict | None = None):
+                 events: dict | None = None, checkpoint: bool = False):
     """Stages 3-6 (TemporalFilter -> FilterMoments -> WaveletFilter -> TAA,
     App.cu:469-522) on one frame's radiance. Returns (temporal_result,
     moments_out, atrous_out, final, feedback), where `feedback` is next
     frame's temporal history (a-trous iteration 0, or the temporal output
-    when there are no a-trous steps)."""
+    when there are no a-trous steps). `checkpoint` runs each plain a-trous
+    step under torch.utils.checkpoint (render_frame's)."""
     F = _filter_stages(radiance.device, config)
     sv = config.svgf
     tres = F.temporal_filter(
@@ -77,27 +78,45 @@ def filter_chain(radiance, gbuf, state: TemporalState, config: RenderConfig,
         phi_colour=sv.phi_colour, phi_normal=sv.phi_normal,
     )
     _mark(events, "moments")
-    atrous_out, feedback, _ = F.wavelet_filter(
-        moments_out, gbuf, steps=sv.spatial_filter_steps,
-        phi_colour=sv.phi_colour, phi_normal=sv.phi_normal,
-    )
+    if checkpoint and F is svgf:
+        atrous_out = feedback = moments_out
+        for i in range(sv.spatial_filter_steps):
+            atrous_out = torch.utils.checkpoint.checkpoint(
+                svgf.atrous_iteration, atrous_out, gbuf, 1 << i, sv.phi_colour, sv.phi_normal,
+                use_reentrant=False)
+            if i == 0:
+                feedback = atrous_out
+    else:
+        atrous_out, feedback, _ = F.wavelet_filter(
+            moments_out, gbuf, steps=sv.spatial_filter_steps,
+            phi_colour=sv.phi_colour, phi_normal=sv.phi_normal,
+        )
     if sv.spatial_filter_steps == 0:
         feedback = tres.color  # RenderBuffer keeps the temporal output
     _mark(events, "atrous")
     if sv.enable_taa:
         final = F.taa(atrous_out, state.taa_history)
     else:
-        rgb = torch.clamp(atrous_out[..., :3], 0.0, 1.0)
+        rgb = clip(atrous_out[..., :3], 0.0, 1.0)
         final = torch.cat([to_srgb(rgb), torch.ones_like(rgb[..., :1])], dim=-1)
     _mark(events, "taa")
     return tres, moments_out, atrous_out, final, feedback
 
 
 def render_frame(scene, state: TemporalState, config: RenderConfig,
-                 events: dict | None = None):
+                 events: dict | None = None, checkpoint: bool = False):
     """One frame. `events`, when given, receives a CUDA event recorded at
     the end of each stage (gbuffer, trace, temporal, moments, atrous, taa,
-    state)."""
+    state).
+
+    The frame is differentiable on the plain filter route (use_pallas
+    "off"; the filter kernels refuse autograd) with the intersector on
+    either route: K5/K6 pick each winner and torch recomputes its t/u/v.
+    The hit choice and the medium's sampled distance are constants, as in
+    svgf_tpu. With `checkpoint`, autograd keeps each trace chunk's and each
+    a-trous step's inputs and recomputes them in the backward pass
+    (torch.utils.checkpoint): the same numbers, since every draw hashes
+    global lane ids, for a fraction of the memory at 1080p."""
     h, w = config.height, config.width
     cam = config.tracing.current_camera
     sdtype = STATE_DTYPES[config.state_dtype]
@@ -129,7 +148,7 @@ def render_frame(scene, state: TemporalState, config: RenderConfig,
             bounces=config.tracing.bounces, clamp=config.tracing.clamp,
             mode=config.tracing.sampling_mode, first_hit=first_hit,
             num_chunks=config.trace_chunks, intersect_mode=isect,
-            block_hw=(h, w) if blocked else None,
+            block_hw=(h, w) if blocked else None, checkpoint=checkpoint,
         )
         radiance = radiance + sample / config.tracing.batch
         rays_traced = rays_traced + nr
@@ -138,7 +157,7 @@ def render_frame(scene, state: TemporalState, config: RenderConfig,
 
     # ---- 3-6. Filter chain ----
     tres, moments_out, atrous_out, final, feedback = filter_chain(
-        radiance, gbuf, state, config, events
+        radiance, gbuf, state, config, events, checkpoint
     )
     new_state = TemporalState(
         color=feedback.to(sdtype),
@@ -214,8 +233,9 @@ class Renderer:
     def __init__(self, scene, config: RenderConfig, device="cuda"):
         if config.mesh.tiles_y * config.mesh.tiles_x != 1:
             raise NotImplementedError(
-                "Renderer runs on one device; for a row mesh, one process per GPU runs "
-                "svgf_tpu_torch.parallel.make_sharded_step (the tiled mesh is not ported yet)")
+                "Renderer runs on one device; on a mesh one process per GPU runs "
+                "svgf_tpu_torch.parallel.make_step_from_config (make_sharded_step on rows, "
+                "make_tiled_step on tiles)")
         self.scene = scene
         self.config = config
         self.device = target_device(device)

@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from svgf_tpu_torch.ops.geometry import luminance, to_srgb
+from svgf_tpu_torch.ops.geometry import abs_, clip, div, luminance, to_srgb
 from svgf_tpu_torch.render.types import GBuffer
 
 INVALID_DEPTH = 1e30
@@ -24,12 +24,12 @@ INVALID_DEPTH = 1e30
 
 def load01(img):
     """imageLoad clamp (Filter.cuh:71-83): values clamped to [0,1] on read."""
-    return torch.clamp(img.float(), 0.0, 1.0)
+    return clip(img.float(), 0.0, 1.0)
 
 
 def store01(img):
     """imageStore clamp (Filter.cuh:55-69)."""
-    return torch.clamp(img, 0.0, 1.0)
+    return clip(img, 0.0, 1.0)
 
 
 def get_depth(depth):
@@ -52,11 +52,11 @@ def _inside(h: int, w: int, dy: int, dx: int, device):
 
 def compute_weight(z_c, z_p, phi_depth, n_c, n_p, phi_normal, l_c, l_p, phi_l):
     """Edge-stopping weight (Filter.cuh:407-427), shared by moments + a-trous."""
-    w_normal = torch.pow(torch.clamp((n_c * n_p).sum(-1), 0.0, 1.0), phi_normal)
+    w_normal = torch.pow(clip((n_c * n_p).sum(-1), 0.0, 1.0), phi_normal)
     zero = phi_depth == 0.0
-    w_z = torch.where(zero, 0.0, torch.abs(z_c - z_p) / torch.where(zero, 1.0, phi_depth))
-    w_l = torch.abs(l_c - l_p) / phi_l
-    return torch.exp(-torch.clamp_min(w_l, 0.0) - torch.clamp_min(w_z, 0.0)) * w_normal
+    w_z = torch.where(zero, 0.0, div(abs_(z_c - z_p), torch.where(zero, 1.0, phi_depth)))
+    w_l = abs_(l_c - l_p) / phi_l
+    return torch.exp(-clip(w_l, 0.0) - clip(w_z, 0.0)) * w_normal
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +140,7 @@ def temporal_filter(current, prev_color, gbuf: GBuffer, prev_gbuf: GBuffer,
     mom_cur = torch.stack([lum, lum * lum], dim=-1)
     mom_prev = torch.where(valid[..., None], mom_prev, 0.0)
     moments = mom_prev + (mom_cur - mom_prev) * alpha[..., None]
-    variance = torch.clamp_min(moments[..., 1] - moments[..., 0] ** 2, 0.0)
+    variance = clip(moments[..., 1] - moments[..., 0] ** 2, 0.0)
 
     prev_col = torch.where(valid[..., None], prev_col, 0.0)
     new_col = prev_col + (cur - prev_col) * alpha[..., None]
@@ -183,7 +183,7 @@ def filter_moments(color, moments, gbuf: GBuffer, history_len,
     l_center = luminance(illum[..., :3])
     z = get_depth(gbuf.depth)
     n = gbuf.normal.float()
-    phi_depth = torch.clamp_min(gbuf.depth_deriv.float(), 1e-8) * 3.0
+    phi_depth = clip(gbuf.depth_deriv.float(), 1e-8) * 3.0
 
     sum_w = torch.zeros((h, w), device=dev)
     sum_illum = torch.zeros((h, w, 3), device=dev)
@@ -202,7 +202,7 @@ def filter_moments(color, moments, gbuf: GBuffer, history_len,
             sum_illum = sum_illum + illum_p * wgt[..., None]
             sum_mom = sum_mom + mom_p * wgt[..., None]
 
-    sum_w = torch.clamp_min(sum_w, 1e-6)
+    sum_w = clip(sum_w, 1e-6)
     f_illum = sum_illum / sum_w[..., None]
     f_mom = sum_mom / sum_w[..., None]
     hist = torch.clamp_min(history_len.float(), 1.0)
@@ -230,8 +230,8 @@ def atrous_iteration(img, gbuf: GBuffer, step: int, phi_colour: float, phi_norma
     variance = center[..., 3]
     z = get_depth(gbuf.depth)
     n = gbuf.normal.float()
-    phi_l = phi_colour * torch.sqrt(torch.clamp_min(1e-10 + variance, 0.0))
-    phi_depth = torch.clamp_min(gbuf.depth_deriv.float(), 1e-6) * step
+    phi_l = phi_colour * torch.sqrt(clip(1e-10 + variance, 0.0))
+    phi_depth = clip(gbuf.depth_deriv.float(), 1e-6) * step
 
     # center pre-accumulated with weight 1 (:565-568)
     sum_w = torch.ones((h, w), device=dev)
@@ -291,7 +291,7 @@ _YUV_DEC = (
 
 
 def _encode_pal_yuv(rgb):
-    rgb = torch.clamp_min(rgb, 0.0)
+    rgb = clip(rgb, 0.0)
     rgb = rgb * rgb
     ch = [rgb[..., 0], rgb[..., 1], rgb[..., 2]]
     return torch.stack(
@@ -304,7 +304,7 @@ def _decode_pal_yuv(yuv):
     rgb = torch.stack(
         [m[0] * ch[0] + m[1] * ch[1] + m[2] * ch[2] for m in _YUV_DEC], dim=-1
     )
-    return torch.sqrt(torch.clamp_min(rgb, 1e-12))
+    return torch.sqrt(clip(rgb, 1e-12))
 
 
 def taa(filtered, history):
@@ -316,10 +316,10 @@ def taa(filtered, history):
     last = load01(history)
     in0 = load01(filtered)[..., :3]
 
-    mix_rate = torch.clamp_max(last[..., 3], 0.5)
+    mix_rate = clip(last[..., 3], None, 0.5)
     aa = last[..., :3]
     aa = aa * aa + (in0 * in0 - aa * aa) * mix_rate[..., None]
-    aa = torch.sqrt(torch.clamp_min(aa, 1e-12))
+    aa = torch.sqrt(clip(aa, 1e-12))
 
     rgb_in = filtered[..., :3]
     rows = torch.arange(h, device=dev)

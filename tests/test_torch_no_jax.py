@@ -41,6 +41,17 @@ with tempfile.TemporaryDirectory() as d:
 r.update_material(0, dataclasses.replace(r.scene.materials[0], colour=(0.9, 0.2, 0.2)))
 assert r.arrays.mat_colour[0, 1].item() == np.float32(0.2)
 assert np.isfinite(r.step().final.numpy()).all()
+# the tiled mesh, the train steps and the parity checker need no JAX either
+from svgf_tpu_torch.parallel import init_params, make_tile_mesh, make_tiled_train_step
+from svgf_tpu_torch.parallel.checks import assert_sharded_parity
+from svgf_tpu_torch.render.types import TemporalState
+tcfg = dataclasses.replace(cfg, use_pallas="off", state_dtype="float32")
+train = make_tiled_train_step(tcfg, make_tile_mesh(1, 1))
+params = init_params(r.arrays, ("mat_colour", "cam_frame"))
+loss, grads, _ = train(params, r.arrays, TemporalState.initial(16, 16, torch.float32, "cpu"),
+                       torch.zeros(16, 16, 3))
+assert grads["mat_colour"].abs().max() > 0
+assert_sharded_parity("without jax", loss, grads, loss, grads)
 assert not any(m in ("jax", "svgf_tpu") or m.startswith(("jax.", "jaxlib", "svgf_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("rendered without jax")
