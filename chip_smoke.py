@@ -130,6 +130,26 @@ Phases, each failing loudly (no phase catches an exception):
      with the edit's host seconds, the repack's ms and the new depth; (e)
      the materials scene through io.save_scene_npz / load_scene_npz, its
      1080p frame 1 through K1-K5 equal to the original's bit for bit.
+ 15. the native builder, the per-shape walk and the orbit renderer (runs
+     before 13): (a) the host library (csrc_host/bvh_builder.cpp, g++) and
+     its build seconds (built right after the kernels); (b) the terrain
+     flattened with the native builder, the port's default (phases 5-14
+     keep the NumPy terrain and nested scene, pinned with SVGF_NATIVE=0):
+     host seconds against phase 5's, both trees' node counts and depths,
+     K6 on its 1080p primary and scrambled rays against the plain walk of
+     the same tree (phase 5's bars, the Hit bit for bit), K6 alone and the
+     records a ray visits on both trees, FRAMES 1080p frames through K1-K4
+     and K6 with their launches and frame FRAMES against the plain route;
+     (c) phase 13's asset import (an OBJ, then the 19,602-triangle PLY)
+     with the native builder: add_asset's seconds, FRAMES frames through
+     K6 and a 480x270 frame against plain; (d) on the native terrain K6
+     with only_instance against the plain route's per-instance BLAS walk
+     (traverse_shape), and intersect_brute_force on 4,096 rays against K6;
+     (e) python -m svgf_tpu_torch.scripts.render_orbit's main on the
+     Cornell box at 1920x1080 for ORBIT_FRAMES frames (frame ms, K1-K5
+     launches a frame, the PNGs) and at its 640x360 default, then --resume
+     for 3 frames, whose last frame equals the same frames rendered from
+     the first run's state in memory (max error 0).
 Every kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its FP32 operations on these inputs over 67 TFLOP/s
 (the H100 SXM's published peaks at 700 W).
@@ -1060,10 +1080,27 @@ def check_dense_kernel() -> dict:
     return {"max_abs_err": max(errs), **t, **b, "library_ms": None, "alone_ms": alone}
 
 
+@contextlib.contextmanager
+def bvh_builder(name: str):
+    """SVGF_NATIVE for the block: the NumPy BVH builder ("numpy") or the
+    native one ("native", the port's default)."""
+    old = os.environ.get("SVGF_NATIVE")
+    os.environ["SVGF_NATIVE"] = {"numpy": "0", "native": "1"}[name]
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("SVGF_NATIVE", None)
+        else:
+            os.environ["SVGF_NATIVE"] = old
+
+
 def stress_arrays(scene):
-    """The stress scene flattened on the card, with its host seconds."""
+    """The stress scene flattened on the card with the NumPy BVH builder
+    (the tree PERF.md's K6 rows were measured on), with its host seconds."""
     t_host = time.perf_counter()
-    arrays = scene.flatten(device=DEVICE)
+    with bvh_builder("numpy"):
+        arrays = scene.flatten(device=DEVICE)
     torch.cuda.synchronize()
     log(f"stress_scene(n={STRESS_N}): flatten (NumPy BVH build) {time.perf_counter() - t_host:.3f} s "
         f"host; {arrays.meta.n_world_tris} world triangles, soup {tuple(arrays.world_tris9.shape)}, "
@@ -1298,8 +1335,8 @@ def run_frames(scene, orbit, h, w, use_pallas: str, chunks: int, frames: int = F
     return out, stages, r
 
 
-def expected_launches(intersector: str, chunks: int, meta) -> dict:
-    """Kernel launches per FRAMES frames, derived from render_frame and the
+def expected_launches(intersector: str, chunks: int, meta, frames: int = FRAMES) -> dict:
+    """Kernel launches per `frames` frames, derived from render_frame and the
     scene's SceneMeta `meta`: one of each filter stage, one a-trous launch
     a step; the intersector once per G-buffer chunk and, per trace chunk
     and MIS bounce, once for the bounce's batched rays and, in a scene with
@@ -1315,8 +1352,8 @@ def expected_launches(intersector: str, chunks: int, meta) -> dict:
     per_frame = chunks * (1 + cfg.tracing.batch * (cfg.tracing.bounces * per_bounce
                                                    + (not cfg.hybrid_primary)))
     launches = dict.fromkeys(LAUNCHES, 0)
-    launches.update(temporal=FRAMES, moments=FRAMES, atrous=5 * FRAMES, taa=FRAMES)
-    launches[intersector] = FRAMES * per_frame
+    launches.update(temporal=frames, moments=frames, atrous=5 * frames, taa=frames)
+    launches[intersector] = frames * per_frame
     return launches
 
 
@@ -1574,7 +1611,8 @@ def nested_arrays(n: int):
 
     scene = nested_scene(n=n, aspect=W / H)
     t_host = time.perf_counter()
-    arrays = scene.flatten(device=DEVICE)
+    with bvh_builder("numpy"):   # its depth of 79 is the NumPy tree's
+        arrays = scene.flatten(device=DEVICE)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t_host
     depth = KI.packed_scene(arrays)[1].depth
@@ -1978,14 +2016,15 @@ def write_obj(path: str, positions, indices) -> None:
 PLY_N = 100   # heightfield_shape(n=100): 19,602 triangles
 
 
-def check_asset_import(tmp: str) -> dict:
-    """Phase 13 (c): Renderer.add_asset on the 1080p Cornell box. A small
-    OBJ (a tetrahedron) keeps the soup under DENSE_MAX_TRIS and the frame
-    on K5; then a binary PLY of heightfield_shape(n=PLY_N) scaled into the
-    box takes it past the limit, to the large-scene layout and K6: FRAMES
-    frames through K1-K4 and K6 with the launches expected_launches
-    derives from the new SceneMeta, and one 480x270 frame of kernels
-    against plain."""
+def check_asset_import(tmp: str, builder: str = "numpy") -> dict:
+    """Phase 13 (c), and 15 (c) with the native builder: Renderer.add_asset
+    on the 1080p Cornell box, its BVHs built by `builder` (bvh_builder). A
+    small OBJ (a tetrahedron) keeps the soup under DENSE_MAX_TRIS and the
+    frame on K5; then a binary PLY of heightfield_shape(n=PLY_N) scaled
+    into the box takes it past the limit, to the large-scene layout and
+    K6: FRAMES frames through K1-K4 and K6 with the launches
+    expected_launches derives from the new SceneMeta, and one 480x270
+    frame of kernels against plain."""
     from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
     from svgf_tpu_torch.ops.intersect import DENSE_MAX_TRIS
     from svgf_tpu_torch.render.pipeline import Renderer
@@ -2000,16 +2039,20 @@ def check_asset_import(tmp: str) -> dict:
     write_obj(obj, [(0.3, -0.2, 0.3), (0.6, -0.2, 0.3), (0.45, -0.2, 0.6), (0.45, 0.1, 0.4)],
               [(0, 2, 1), (0, 1, 3), (1, 2, 3), (2, 0, 3)])
 
-    r = Renderer(cornell_box(aspect=W / H), render_config(H, W, "on", TRACE_CHUNKS), device=DEVICE)
+    with bvh_builder(builder):
+        r = Renderer(cornell_box(aspect=W / H), render_config(H, W, "on", TRACE_CHUNKS),
+                     device=DEVICE)
     r.step()
     res = {}
     for name, path, large in (("OBJ", obj, False), ("PLY", ply, True)):
         t0 = time.perf_counter()
-        r.add_asset(path)
+        with bvh_builder(builder):
+            r.add_asset(path)
         torch.cuda.synchronize()
         res[f"{name}_add_s"] = time.perf_counter() - t0
         meta = r.arrays.meta
-        log(f"add_asset({name}): {res[f'{name}_add_s']:.3f} s host; {meta.n_world_tris} world "
+        log(f"add_asset({name}, {builder} builder): {res[f'{name}_add_s']:.3f} s host; "
+            f"{meta.n_world_tris} world "
             f"triangles, large-scene layout {meta.soup_leaf_order}, scene BVH {meta.has_scene_bvh}")
         assert meta.soup_leaf_order == meta.has_scene_bvh == large
         assert (meta.n_world_tris > DENSE_MAX_TRIS) == large
@@ -2029,16 +2072,17 @@ def check_asset_import(tmp: str) -> dict:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     launches = dict(LAUNCHES)
-    log(f"Cornell + heightfield (1080p) launches over {FRAMES} frames: {launches}; frame ms "
+    log(f"Cornell + heightfield ({builder} builder, 1080p) launches over {FRAMES} frames: "
+        f"{launches}; frame ms "
         f"{[round(m, 3) for m in ms]} (the first takes the K6 repack)")
     assert launches == expected_launches("intersect_clustered", TRACE_CHUNKS, r.arrays.meta), \
         launches
-    check_image(out, H, W, "Cornell + heightfield")
+    check_image(out, H, W, f"Cornell + heightfield ({builder})")
     res["switch_frame_ms"], res["frame_ms"] = ms[0], statistics.median(ms[1:])
     scene = Flattened(r.scene, r.arrays)
     small, _, _ = run_frames(scene, cornell_orbit, SMALL_H, SMALL_W, "on", 1, 1)
     small_plain, _, _ = run_frames(scene, cornell_orbit, SMALL_H, SMALL_W, "off", 1, 1)
-    compare_frames("Cornell + heightfield 480x270", small, small_plain, 1)
+    compare_frames(f"Cornell + heightfield ({builder}) 480x270", small, small_plain, 1)
     return res
 
 
@@ -2583,6 +2627,242 @@ def check_gradients(arrays) -> dict:
             "intersect_clustered": res["terrain"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# 15. the native builder, the per-shape walk and the orbit renderer
+# ---------------------------------------------------------------------------
+
+ORBIT_FRAMES = 6      # render_orbit's 1080p run and its 640x360 run before the resume
+ORBIT_RESUMED = 3     # the frames of the --resume run
+BRUTE_RAYS = 4096     # rays of the brute force against K6
+
+
+def build_host_library() -> float:
+    """Phase 15 (a): compile csrc_host/bvh_builder.cpp with g++
+    (accel/native.py) and load it; returns the build's seconds."""
+    from svgf_tpu_torch.accel import native
+
+    found = native.library_path().exists()
+    t0 = time.perf_counter()
+    path = native.build()
+    native.library()
+    seconds = time.perf_counter() - t0
+    log(f"host library {path.name}: {'found' if found else 'built'} in {seconds:.3f} s "
+        f"(g++ {' '.join(native.CXX_FLAGS)})")
+    return seconds
+
+
+def skip_link_depth(skip, internal) -> int:
+    """Internal nodes on the longest root-to-leaf path of a DFS
+    skip-linked tree: the most internal nodes whose [i, skip[i]) subtree
+    ranges hold one node."""
+    skip, i = np.asarray(skip), np.flatnonzero(np.asarray(internal))
+    d = np.zeros(len(skip) + 1, np.int64)
+    np.add.at(d, i, 1)
+    np.add.at(d, skip[i], -1)
+    return int(np.cumsum(d)[:-1].max())
+
+
+def k6_on_tree(label, arrays) -> dict:
+    """K6 alone and through its wrapper on a terrain's 1080p primary rays,
+    the child-pair records and triangle tests a ray, and its bound on them
+    (phase 5's formula)."""
+    from svgf_tpu_torch.kernels import intersect as KI
+
+    ro, rd = stress_rays(arrays)[0]["primary"]
+    _, _, st = KI.bvh_hit(arrays, *KI._rays(ro, rd, None, None), stats=True)
+    c = visit_counts(f"{label}, K6 (child-pair records)", st[:, 0], st[:, 1])
+    fn = lambda: KI.intersect_clustered_kernel(arrays, ro, rd)
+    t = time_call(fn)
+    tris, bvh = KI.packed_scene(arrays)
+    b = bound(nbytes(ro, rd, *fn()) + nbytes(bvh.nodes, tris),
+              ro.shape[0] * (c["visits"] * 2 * OPS_SLAB + c["tests"] * OPS_MT + OPS_RECOMPUTE))
+    log(f"  {label}: K6 {t['ms']:.4f} ms through the wrapper, {t['alone_ms']:.4f} ms alone; bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
+    return {**t, **c, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+
+
+def check_native_terrain(stress, numpy_arrays, numpy_flatten_s: float) -> tuple:
+    """Phase 15 (b): the terrain flattened with the native builder against
+    phase 5's NumPy flatten; K6 against the plain walk of the native tree;
+    K6 on both trees; FRAMES 1080p frames through K1-K4 and K6 against the
+    plain route. Returns (the results, the native arrays)."""
+    from svgf_tpu_torch.kernels import intersect as KI
+    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
+    from svgf_tpu_torch.scenes.stress import stress_scene
+
+    scene = stress_scene(n=STRESS_N, aspect=W / H)
+    t0 = time.perf_counter()
+    with bvh_builder("native"):
+        arrays = scene.flatten(device=DEVICE)
+    torch.cuda.synchronize()
+    native_s = time.perf_counter() - t0
+    res = {"flatten_s": {"numpy": numpy_flatten_s, "native": native_s}, "trees": {}}
+    for name, sc, a in (("numpy", stress, numpy_arrays), ("native", scene, arrays)):
+        blas = sc.shapes[0].blas
+        res["trees"][name] = {
+            "terrain_blas_nodes": blas.n_nodes,
+            "terrain_blas_depth": skip_link_depth(blas.skip, blas.tri_count == 0),
+            "scene_bvh_nodes": int(a.wbvh_skip.shape[0]),
+            "scene_bvh_depth": KI.packed_scene(a)[1].depth,
+        }
+    log(f"terrain flatten: native builder {native_s:.3f} s host, NumPy builder (phase 5) "
+        f"{numpy_flatten_s:.3f} s; trees {res['trees']}")
+    assert not torch.equal(arrays.world_tri_prim, numpy_arrays.world_tri_prim)
+    assert KI.spill_entries(res["trees"]["native"]["scene_bvh_depth"]) == 0
+
+    rays, _ = stress_rays(arrays)
+    log("K6 on the native terrain tree vs its plain walk:")
+    res["max_abs_err"] = max(check_k6_case(arrays, f"{name} ({ro.shape[0]} rays)", ro, rd, {})
+                             for name, (ro, rd) in rays.items())
+    res["k6"] = {name: k6_on_tree(f"{name} tree, primary", a)
+                 for name, a in (("numpy", numpy_arrays), ("native", arrays))}
+
+    flat = Flattened(scene, arrays)
+    reset_launches()
+    out, stages, r = run_frames(flat, stress_orbit, H, W, "on", TRACE_CHUNKS)
+    launches = dict(LAUNCHES)
+    log(f"terrain (native tree) 1080p launches over {FRAMES} frames: {launches}")
+    assert launches == expected_launches("intersect_clustered", TRACE_CHUNKS, r.arrays.meta), \
+        launches
+    check_image(out, H, W, "terrain (native tree)")
+    log_stages("terrain (native tree) kernels", stages)
+    t0 = time.perf_counter()
+    plain_out, plain_stages, _ = run_frames(flat, stress_orbit, H, W, "off", TRACE_CHUNKS)
+    res["plain_frames_s"] = time.perf_counter() - t0
+    compare_frames("terrain (native tree) 1080p", out, plain_out)
+    log_stages("terrain (native tree) plain", plain_stages)
+    res["frame_ms"] = statistics.median(st["frame"] for st in stages[1:])
+    return res, arrays
+
+
+def check_only_instance(arrays) -> dict:
+    """Phase 15 (d) on the native terrain: K6 with only_instance (0, the
+    terrain, on the 1080p primary rays; 1, the light, on rays straight up)
+    against the plain route's walk of that instance's BLAS in object space
+    (intersect_instances -> traverse_shape), by the K6 bars: hit sets
+    equal, the winner on >= 99.99% of lanes, relative dist < 2e-3; the
+    Hit K6 writes bit for bit its winner's recompute. Then
+    intersect_brute_force on BRUTE_RAYS rays (half primary, half
+    scrambled) against K6: the hit sets equal, dist to rtol 1e-4."""
+    from svgf_tpu_torch.kernels import intersect as KI
+    from svgf_tpu_torch.ops.intersect import intersect_brute_force, intersect_instances, start_dist
+
+    rays, rng = stress_rays(arrays)
+    ro_p, rd_p = rays["primary"]
+    n = SCRAMBLED
+    ro_up = cuda(np.stack([rng.uniform(-1.2, 1.2, n), np.full(n, 0.5), rng.uniform(-1.2, 1.2, n)], 1))
+    rd_up = cuda(np.tile([[0.0, 1.0, 0.0]], (n, 1)))
+    log("K6 with only_instance vs the per-instance BLAS walk (traverse_shape), native terrain:")
+    res = {}
+    for label, ro, rd, inst in (("primary, only_instance=0", ro_p, rd_p, 0),
+                                ("straight up, only_instance=1", ro_up, rd_up, 1)):
+        got = check_k6_hit(arrays, label, ro, rd, {"only_instance": inst})
+        t0 = time.perf_counter()
+        want = intersect_instances(arrays, ro, rd, only_instance=inst)
+        torch.cuda.synchronize()
+        walk_s = time.perf_counter() - t0
+        st = compare_hits(f"{label}, K6 vs traverse_shape ({walk_s:.3f} s)", got, want,
+                          start_dist(None, ro.shape[0], ro.device))
+        assert st["hits"] > 0 and st["hit_sets_differ"] == 0, (label, st)
+        assert st["rel_max"] < 2e-3 and st["agree"] >= 0.9999, (label, st)
+        assert bool((got.instance[got.dist < 1e29] == inst).all()), label
+        res[label] = {**st, "walk_s": walk_s}
+
+    pick = torch.from_numpy(rng.choice(ro_p.shape[0], BRUTE_RAYS // 2, replace=False)).to(DEVICE)
+    ro = torch.cat([ro_p[pick], rays["scrambled"][0][: BRUTE_RAYS // 2]])
+    rd = torch.cat([rd_p[pick], rays["scrambled"][1][: BRUTE_RAYS // 2]])
+    t0 = time.perf_counter()
+    brute = intersect_brute_force(arrays, ro, rd)
+    torch.cuda.synchronize()
+    brute_s = time.perf_counter() - t0
+    got = KI.intersect_clustered_kernel(arrays, ro, rd)
+    hit = brute.dist < 1e29
+    rel = ((got.dist - brute.dist).abs() / brute.dist)[hit]
+    agree = float(((got.prim == brute.prim) | ~hit).float().mean())
+    log(f"  intersect_brute_force on {BRUTE_RAYS} rays ({brute_s:.3f} s) vs K6: hits "
+        f"{int(hit.sum())}, hit sets differ {int((hit != (got.dist < 1e29)).sum())}, relative "
+        f"dist max {float(rel.max()):.3e}, winners agree {agree:.6f}")
+    assert hit.any() and torch.equal(hit, got.dist < 1e29)
+    assert float(rel.max()) < 1e-4
+    res["brute_force"] = {"s": brute_s, "rel_max": float(rel.max()), "agree": agree}
+    return res
+
+
+def check_render_orbit(tmp: str) -> dict:
+    """Phase 15 (e): render_orbit's main on the Cornell box through K1-K5:
+    at 1920x1080 for ORBIT_FRAMES frames (its 48 trace chunks), with the
+    launches of each frame checked, frame ms and the PNGs; then at its
+    640x360 default for ORBIT_FRAMES frames and --resume for ORBIT_RESUMED
+    more, whose last frame equals, with max error 0, the same frames
+    rendered by a new Renderer from the first run's state in memory."""
+    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
+    from svgf_tpu_torch.render.pipeline import Renderer
+    from svgf_tpu_torch.scripts import render_orbit
+    from svgf_tpu_torch.utils.image import read_png
+
+    out = os.path.join(tmp, "orbit_1080p")
+    reset_launches()
+    t0 = time.perf_counter()
+    run = render_orbit.main(["--width", str(W), "--height", str(H), "--frames", str(ORBIT_FRAMES),
+                             "--out", out])
+    total_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    cfg, meta = run.renderer.config, run.renderer.arrays.meta
+    expect = expected_launches("intersect_dense", cfg.trace_chunks, meta, ORBIT_FRAMES)
+    per_frame = {k: v / ORBIT_FRAMES for k, v in launches.items() if v}
+    log(f"render_orbit 1080p: {ORBIT_FRAMES} frames in {total_s:.3f} s, frame ms "
+        f"{[round(m, 3) for m in run.frame_ms]}; trace_chunks {cfg.trace_chunks}; launches a "
+        f"frame {per_frame}")
+    assert launches == expect, (launches, expect)
+    assert [os.path.basename(p) for p in run.pngs] == \
+        [f"frame_{f:04d}.png" for f in range(ORBIT_FRAMES)]
+    assert read_png(run.pngs[-1]).shape == (H, W, 3)
+    img = run.last_image
+    assert img.shape == (H, W, 3) and np.isfinite(img).all() and 0.0 <= img.min() <= img.max() <= 1.0
+    assert img.mean() > 0.05, "the orbit's last frame is black"
+    res = {"frame_ms": run.frame_ms, "median_ms": statistics.median(run.frame_ms[1:]),
+           "launches_a_frame": per_frame, "total_s": total_s}
+
+    out = os.path.join(tmp, "orbit_default")
+    first = render_orbit.main(["--frames", str(ORBIT_FRAMES), "--out", out])
+    t0 = time.perf_counter()
+    resumed = render_orbit.main(["--frames", str(ORBIT_RESUMED), "--out", out,
+                                 "--resume", os.path.join(out, "ckpt.npz")])
+    res["resume_s"] = time.perf_counter() - t0
+    args = render_orbit.parse_args(["--frames", str(ORBIT_RESUMED)])
+    cfg = render_orbit.render_config(args)
+    scene, target, distance = render_orbit.orbit_scene(args.scene, cfg.width / cfg.height)
+    r = Renderer(scene, cfg, device=DEVICE)
+    r.state = first.renderer.state
+    for f in range(ORBIT_FRAMES, ORBIT_FRAMES + ORBIT_RESUMED):
+        r.update_camera(render_orbit.orbit_pose(f, args, target, distance))
+        want = r.step().image.cpu().numpy()
+    d = float(np.abs(resumed.last_image - want).max())
+    log(f"render_orbit {cfg.width}x{cfg.height}: frame ms {[round(m, 3) for m in first.frame_ms]}; "
+        f"resumed at frame {ORBIT_FRAMES} for {ORBIT_RESUMED} frames "
+        f"({[os.path.basename(p) for p in resumed.pngs]}), last frame against the same frames "
+        f"from the state in memory: max error {d}")
+    assert resumed.renderer.state.frame_idx == ORBIT_FRAMES + ORBIT_RESUMED
+    assert d == 0.0, d
+    res["default_frame_ms"] = first.frame_ms
+    return res
+
+
+def check_native_and_orbit(stress, numpy_arrays, numpy_flatten_s: float,
+                           host_build_s: float) -> dict:
+    """Phase 15: (a) the host library's build seconds, (b) the native
+    terrain, (c) the native asset import, (d) only_instance and the brute
+    force, (e) render_orbit."""
+    res = {"host_build_s": host_build_s}
+    res["terrain"], arrays = check_native_terrain(stress, numpy_arrays, numpy_flatten_s)
+    with tempfile.TemporaryDirectory() as tmp:
+        res["import"] = check_asset_import(tmp, "native")
+        res["only_instance"] = check_only_instance(arrays)
+        res["orbit"] = check_render_orbit(tmp)
+    log("phase 15: " + json.dumps(res))
+    return res
+
+
 def compare_times() -> dict:
     """The times the redesigns of K2/K8, K6 and K4/K10 should move, measured
     on the tree of the port that is imported, with only the wrappers'
@@ -2677,6 +2957,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase("build", build_kernels)
+    host_build_s = phase("host library build", build_host_library)
     timed = phase("filter kernels", check_filter_kernels)
     timed.update(phase("band kernels", check_band_kernels))
     timed["intersect_dense"] = phase("K5", check_dense_kernel)
@@ -2684,7 +2965,9 @@ def main() -> int:
     from svgf_tpu_torch.scenes.stress import stress_scene
 
     stress = stress_scene(n=STRESS_N, aspect=W / H)
+    t0 = time.perf_counter()
     arrays = phase("terrain flatten", stress_arrays, stress)
+    numpy_flatten_s = time.perf_counter() - t0
     timed["intersect_clustered"] = phase("K6", check_clustered_kernel, arrays, *stress_rays(arrays))
     launches, matte = phase("main path", check_main_path)
     phase("main path, bf16 state", check_bf16_path)
@@ -2699,6 +2982,8 @@ def main() -> int:
     phase("materials", check_materials_path, stress, arrays, matte)
     phase("K2 designs", lambda: check_moments_designs(moments_design_cases(stress)))
     train_launches = phase("gradients and train steps", check_gradients, arrays)
+    phase("native builder, per-shape walk and orbit", check_native_and_orbit, stress, arrays,
+          numpy_flatten_s, host_build_s)
     # last: it moves the terrain's light
     phase("scene I/O and edits", check_scene_io_and_edits, stress, arrays)
 

@@ -1,6 +1,6 @@
-"""Host-side BVH construction (NumPy), the port's copy of
-svgf_tpu/accel/bvh.py: the NumPy reference builder, the per-shape
-flattening and the stitched world-space scene BVH.
+"""Host-side BVH construction, the port's copy of svgf_tpu/accel/bvh.py:
+the BLAS builders (native C++ by default, NumPy with SVGF_NATIVE=0), the
+per-shape flattening, the TLAS and the stitched world-space scene BVH.
 
 Semantics follow the reference builder (BVH.cpp:60-257): binned SAH with
 BINS=8 over 3 axes, a split taken only when its SAH cost beats the leaf
@@ -13,9 +13,13 @@ both packages hold the same tree:
      to skip[i]; on a hit descend to i+1 (internal) or test the leaf's
      triangle and jump to skip[i]. Per-ray state is one int.
 
-svgf_tpu can also build the same kind of tree with a native C++ builder;
-its tree differs from this one in leaf order and bounds. The port has only
-the NumPy builder, which svgf_tpu names its reference implementation.
+`build_blas` takes the native builder (accel/native.py over
+csrc_host/bvh_builder.cpp, svgf_tpu's native/bvh_builder.cpp copied) unless
+SVGF_NATIVE=0, as svgf_tpu does. Both build this kind of tree, but not the
+same tree: leaf order and bounds differ. The native tree is bit-equal to
+svgf_tpu's native tree, the NumPy tree to svgf_tpu's NumPy tree. Unlike
+svgf_tpu, the port does not fall back to NumPy when the native library is
+missing: it builds the library, and a failed build raises.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from svgf_tpu_torch.accel import native
 
 BINS = 8          # reference BVH.cpp:13
 MAX_LEAF = 1      # one triangle per leaf (svgf_tpu/accel/bvh.py:35)
@@ -112,7 +118,21 @@ def _node_area(lo: np.ndarray, hi: np.ndarray) -> float:
 
 
 def build_blas(tri_pos: np.ndarray) -> BLAS:
-    """Build a threaded BVH over triangles given as (T, 3, 3) vertex positions."""
+    """Build a threaded BVH over triangles given as (T, 3, 3) vertex
+    positions: the native builder's tree unless SVGF_NATIVE=0, else the
+    NumPy builder's (svgf_tpu/accel/bvh.py:120-192)."""
+    if native.enabled() and np.asarray(tri_pos).shape[0] > 0:
+        node_min, node_max, skip, leaf_tri = native.build_blas_native(tri_pos)
+        leaves = leaf_tri >= 0
+        return BLAS(
+            node_min=node_min,
+            node_max=node_max,
+            skip=skip.astype(np.int32),
+            tri_first=np.where(leaves, np.cumsum(leaves) - 1, -1).astype(np.int32),
+            tri_count=leaves.astype(np.int32),
+            tri_order=leaf_tri[leaves].astype(np.int32),
+        )
+
     tri_pos = np.asarray(tri_pos, dtype=np.float64)
     T = tri_pos.shape[0]
     assert T > 0, "cannot build a BVH over zero triangles"
@@ -353,6 +373,51 @@ def _agglomerative_tree(inst_min: np.ndarray, inst_max: np.ndarray) -> dict | No
         }
         work = [w for k, w in enumerate(work) if k not in (i, j)] + [merged]
     return work[0]
+
+
+@dataclasses.dataclass
+class TLAS:
+    """Threaded instance-level BVH (svgf_tpu/accel/bvh.py:253-263).
+
+    leaf_instance: (N,) int32 — instance id at leaves, -1 for internal nodes.
+    """
+
+    node_min: np.ndarray
+    node_max: np.ndarray
+    skip: np.ndarray
+    leaf_instance: np.ndarray
+
+
+def build_tlas(inst_min: np.ndarray, inst_max: np.ndarray) -> TLAS:
+    """Agglomerative (best-match) bottom-up build over instance world AABBs,
+    DFS-flattened with skip links (svgf_tpu/accel/bvh.py:307-342)."""
+    root = _agglomerative_tree(inst_min, inst_max)
+    if root is None:
+        return TLAS(
+            node_min=np.zeros((0, 3), np.float32),
+            node_max=np.zeros((0, 3), np.float32),
+            skip=np.zeros((0,), np.int32),
+            leaf_instance=np.zeros((0,), np.int32),
+        )
+    _subtree_sizes(root)
+    node_min, node_max, skip, leaf_inst = [], [], [], []
+    stack = [(root, root["size"])]
+    while stack:
+        nd, skip_to = stack.pop()
+        i = len(node_min)
+        node_min.append(nd["lo"])
+        node_max.append(nd["hi"])
+        skip.append(skip_to)
+        leaf_inst.append(nd["inst"])
+        if nd["left"] is not None:
+            stack.append((nd["right"], skip_to))
+            stack.append((nd["left"], i + 1 + nd["left"]["size"]))
+    return TLAS(
+        node_min=np.asarray(node_min, dtype=np.float32),
+        node_max=np.asarray(node_max, dtype=np.float32),
+        skip=np.asarray(skip, dtype=np.int32),
+        leaf_instance=np.asarray(leaf_inst, dtype=np.int32),
+    )
 
 
 def build_scene_bvh(

@@ -2,10 +2,12 @@
 
 The host classes are NumPy copies of svgf_tpu/core/scene.py (Material,
 Shape, Instance, Environment, Scene, SceneMeta): that module imports JAX.
-`Scene.flatten(device=...)` runs the same NumPy build and ends in
+`Scene.flatten(device=...)` runs the same host build and ends in
 `torch.as_tensor` where the JAX version ends in `jnp.asarray`, so both
-packages hold bit-identical scene data when both build their BVHs with
-the NumPy builder (tests/test_torch_convert.py, tests/test_torch_intersect.py).
+packages hold bit-identical scene data when both build BVHs and tangents
+the same way: natively (the default; accel/native.py,
+tests/test_torch_native.py) or with NumPy under SVGF_NATIVE=0
+(tests/test_torch_convert.py, tests/test_torch_intersect.py).
 
 Scenes over `ops.intersect.DENSE_MAX_TRIS` world triangles get svgf_tpu's
 large-scene layout: the soup in BLAS-leaf order, padded to whole
@@ -24,6 +26,7 @@ import enum
 import numpy as np
 import torch
 
+from svgf_tpu_torch.accel import native
 from svgf_tpu_torch.accel.bvh import (
     BLAS, FlatBVH, _transform_aabbs, build_blas, build_scene_bvh, flatten_blases,
 )
@@ -97,8 +100,13 @@ class Shape:
             self.normals = N
         if self.uvs is None:
             self.uvs = np.zeros((P.shape[0], 2), dtype=np.float32)
+        if self.tangents is None and native.enabled():
+            self.tangents = native.tangents_native(
+                P, np.asarray(self.normals, np.float32), np.asarray(self.uvs, np.float32),
+                F.astype(np.int32),
+            )
         if self.tangents is None:
-            # svgf_tpu's NumPy reference method
+            # SVGF_NATIVE=0: svgf_tpu's NumPy reference method
             self.tangents = _lengyel_tangents(
                 P, np.asarray(self.normals), np.asarray(self.uvs), F
             )
@@ -322,6 +330,13 @@ class Scene:
     env_textures: list = dataclasses.field(default_factory=list)  # (He,We,3) float arrays
     textures: list = dataclasses.field(default_factory=list)      # (H,W,4) u8/float images
     textures_enabled: bool = False
+
+    def with_camera(self, index: int, camera) -> "Scene":
+        """A copy of the scene with camera `index` replaced (svgf_tpu's
+        Scene.with_camera); the shapes and their BVHs are shared."""
+        cams = list(self.cameras)
+        cams[index] = camera
+        return dataclasses.replace(self, cameras=cams)
 
     def preprocess(self) -> "Scene":
         for s in self.shapes:

@@ -227,7 +227,41 @@ def refract(d, n, eta):
     return torch.where((k < 0.0)[..., None], 0.0, refr)
 
 
+def components(x):
+    """The component tuple (x, y, z) of (..., 3) vectors."""
+    return (x[..., 0], x[..., 1], x[..., 2])
+
+
+def ray_triangle(ro, rd, v0, v1, v2):
+    """Moller-Trumbore (Common.cuh:509-536) on (..., 3) tensors that
+    broadcast. Returns (t, u, v, hit), with t = MAX_LENGTH where missed
+    (svgf_tpu/ops/geometry.py:117)."""
+    return ray_triangle_comp(*map(components, (ro, rd, v0, v1, v2)))
+
+
+def ray_aabb(ro, inv_rd, lo, hi, tmax):
+    """Slab test (Common.cuh:538-548) on (..., 3) tensors: the entry t, or
+    MAX_LENGTH on a miss (svgf_tpu/ops/geometry.py:138). amax/amin
+    propagate NaN, as jnp.max/min do."""
+    t1 = (lo - ro) * inv_rd
+    t2 = (hi - ro) * inv_rd
+    tn = torch.amax(torch.minimum(t1, t2), dim=-1)
+    tf = torch.amin(torch.maximum(t1, t2), dim=-1)
+    hit = (tf >= tn) & (tn < tmax) & (tf > 0)
+    return torch.where(hit, tn, MAX_LENGTH)
+
+
 # Componentwise variants: every operand is a tuple of three tensors.
+
+
+def transform_point3(m, p):
+    """m: (4, 4); p: component tuple -> component tuple (w=1, no divide)."""
+    return tuple(m[i, 0] * p[0] + m[i, 1] * p[1] + m[i, 2] * p[2] + m[i, 3] for i in range(3))
+
+
+def transform_vector3(m, d):
+    """w=0 transform, no normalize (object-space ray directions)."""
+    return tuple(m[i, 0] * d[0] + m[i, 1] * d[1] + m[i, 2] * d[2] for i in range(3))
 
 
 def dot3(a, b):

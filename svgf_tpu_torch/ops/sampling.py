@@ -66,6 +66,14 @@ class RngStream:
         return torch.stack([self.uniform(), self.uniform()], dim=-1)
 
 
+def hash_uniform(key: tuple[int, int], lane_ids: torch.Tensor, site: int = 1) -> torch.Tensor:
+    """One-off counter-based uniform field at explicit lane ids: the draw
+    of call site `site` of a stream on `key` (svgf_tpu hash_uniform)."""
+    s = RngStream(key, lane_ids)
+    s._n = site - 1
+    return s.uniform()
+
+
 def power_heuristic(pdf0, pdf1):
     """(Common.cuh:1571-1574) in the overflow-stable ratio form
     1/(1+(pdf1/pdf0)^2), with pdf0 <= 0 lanes giving 0."""

@@ -254,8 +254,8 @@ def test_taa_band_matches_jax():
     want = np.asarray(taa_pallas(jnp.asarray(e(img)), jnp.asarray(e(history)), interpret=True))
     t = torch.from_numpy
     got = K.taa_band(t(e(img)), t(e(history)))
-    d = np.abs(got.numpy() - want)
-    assert d.mean() < 1e-4 and (d > 5e-3).mean() == 0.0, (d.mean(), d.max())
+    # identical inputs: the other stages' bar (measured max 5.2e-6 on the CPU)
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5)
     frame = P.taa(t(img), t(history))
     assert torch.equal(got[1:-1], frame[r0:r1])
     # the image's top band: the edge row repeated is the clamped tap

@@ -207,10 +207,11 @@ def stress():
     try:
         js = j_stress(n=96)
         ja = js.flatten()
+        ts = stress_scene(n=96)
+        ta = ts.flatten(device="cpu")
     finally:
         mp.undo()
-    ts = stress_scene(n=96)
-    return js, ja, ts, ts.flatten(device="cpu")
+    return js, ja, ts, ta
 
 
 @pytest.mark.parametrize("which", ["light", "terrain"])

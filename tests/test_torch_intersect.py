@@ -25,6 +25,13 @@ instances nested one in the next: a scene BVH 79 levels deep, whose rays'
 walks hold more than the terrain's 64-entry stack) the port's walk holds
 to svgf_tpu's, and the model's stack to the tree's depth, from which the
 wrapper sizes the scratch past K6's stack.
+
+The plain route's `only_instance` walk of one instance's BLAS in object
+space (traverse_shape) holds to svgf_tpu's walk with its Pallas route off,
+its derivative with respect to the ray origin to jax.jvp's; the brute
+force to svgf_tpu's; and on the native builder's tree of the stress scene
+(the port's default) the walks, the model of K6's walk and K6's premises
+hold as on the NumPy tree.
 """
 
 import dataclasses
@@ -37,15 +44,19 @@ import torch
 
 from svgf_tpu.kernels.intersect_pallas import intersect_dense_pallas as j_dense_pallas
 from svgf_tpu.ops.intersect import Hit as JHit
+from svgf_tpu.ops.intersect import intersect_brute_force as j_brute_force
 from svgf_tpu.ops.intersect import intersect_scene as j_intersect_scene
 from svgf_tpu.ops.intersect import set_pallas_mode
 from svgf_tpu.ops.intersect import traverse_scene_bvh as j_traverse
+from svgf_tpu.ops.intersect import traverse_shape as j_traverse_shape
 from svgf_tpu.render.gbuffer import camera_rays as j_camera_rays
 from svgf_tpu.core.camera import Camera as JCamera
 from svgf_tpu.core.camera import look_at_frame as j_look_at_frame
 from svgf_tpu.core.scene import Instance as JInstance
 from svgf_tpu.core.scene import Material as JMaterial
 from svgf_tpu.core.scene import Scene as JScene
+from svgf_tpu.accel.bvh import build_tlas as j_build_tlas
+from svgf_tpu.ops import geometry as JG
 from svgf_tpu.scenes import cornell_box as j_cornell
 from svgf_tpu.scenes.default_scene import _plane as j_plane
 from svgf_tpu.scenes.stress import heightfield_shape as j_heightfield_shape
@@ -53,10 +64,14 @@ from svgf_tpu.scenes.stress import stress_scene as j_stress
 from svgf_tpu_torch import convert
 from svgf_tpu_torch.core.scene import SceneArrays, SceneMeta
 from svgf_tpu_torch.kernels import intersect as KI
-from svgf_tpu_torch.ops.geometry import MAX_LENGTH, ray_aabb_comp, ray_triangle_comp
+from svgf_tpu_torch.accel.bvh import build_blas, build_tlas
+from svgf_tpu_torch.ops import geometry as TG
+from svgf_tpu_torch.ops.geometry import (
+    MAX_LENGTH, ray_aabb_comp, ray_triangle_comp, transform_point3, transform_vector3,
+)
 from svgf_tpu_torch.ops.intersect import (
-    _walk_scene_bvh, hit_from_winner, intersect_dense, intersect_scene, start_dist,
-    traverse_scene_bvh,
+    Hit, _walk_scene_bvh, hit_from_winner, intersect_brute_force, intersect_dense,
+    intersect_instances, intersect_scene, start_dist, traverse_scene_bvh, traverse_shape,
 )
 from svgf_tpu_torch.scenes import nested
 from svgf_tpu_torch.scenes.stress import stress_scene
@@ -244,15 +259,15 @@ def test_dense_recompute_gradient_matches_jax(cornell):
 @pytest.fixture(scope="module")
 def stress():
     """stress_scene(n=96) flattened by both packages, both with the NumPy
-    BVH builder (svgf_tpu's native builder makes another tree, whose leaf
-    order decides the soup columns)."""
+    BVH builder (the native builder, the port's default, makes another
+    tree, whose leaf order decides the soup columns)."""
     mp = pytest.MonkeyPatch()
     mp.setenv("SVGF_NATIVE", "0")
     try:
         ja = j_stress(n=96).flatten()
+        ta = stress_scene(n=96).flatten(device="cpu")
     finally:
         mp.undo()
-    ta = stress_scene(n=96).flatten(device="cpu")
     return ja, ta
 
 
@@ -599,9 +614,9 @@ def nested_scene():
     mp.setenv("SVGF_NATIVE", "0")
     try:
         ja = _j_nested_scene().flatten()
+        ta = nested.nested_scene().flatten(device="cpu")
     finally:
         mp.undo()
-    ta = nested.nested_scene().flatten(device="cpu")
     ro, rd = jax.jit(lambda a: j_camera_rays(a.cam_frame[0], a.cam_proj[0], 6, 10))(ja)
     rng = np.random.default_rng(8)
     n = 64
@@ -713,3 +728,246 @@ def test_any_hit_consistency(cornell, stress, stress_rays, intersector):
     # svgf_tpu's own any-hit verdicts (tests/test_bvh.py) are the same
     j_any = j_intersect_scene(ja, jnp.asarray(ro), jnp.asarray(rd), any_hit=True)
     np.testing.assert_array_equal(_np(j_any.dist) < 1e29, valid_close)
+
+
+# ---------------------------------------------------------------------------
+# the per-shape walk, the brute force, and the native builder's tree
+# ---------------------------------------------------------------------------
+
+
+def _j_plain(ja, ro, rd, fn=j_intersect_scene, **kw):
+    """svgf_tpu's `fn` (intersect_scene) off its Pallas route, jitted; NumPy out."""
+    set_pallas_mode("off")
+    try:
+        out = jax.jit(lambda a, o, d: fn(a, o, d, **kw))(ja, jnp.asarray(ro), jnp.asarray(rd))
+    finally:
+        set_pallas_mode("auto")
+    return jax.tree.map(np.asarray, out)
+
+
+def _light_rays(R=256):
+    """Rays straight up at the light quad (instance 1), as in
+    test_large_intersect_only_instance_tmax_active."""
+    up = np.tile(np.array([[0.0, 1.0, 0.0]], np.float32), (R, 1))
+    o = np.stack([np.linspace(-1.2, 1.2, R), np.full(R, 0.5), np.linspace(-0.9, 0.9, R)],
+                 axis=1).astype(np.float32)
+    return o, up
+
+
+def _assert_same_hits(got, want, uv_atol=5e-5):
+    """The same winners and ids on every lane, dist to 1e-5; u and v to
+    5e-5 (see test_scene_bvh_walk_matches_jax)."""
+    for f in ("prim", "instance", "material"):
+        np.testing.assert_array_equal(_np(getattr(got, f)), _np(getattr(want, f)), err_msg=f)
+    np.testing.assert_allclose(_np(got.dist), _np(want.dist), atol=1e-5, err_msg="dist")
+    for f in ("u", "v"):
+        np.testing.assert_allclose(_np(getattr(got, f)), _np(getattr(want, f)), atol=uv_atol,
+                                   err_msg=f)
+
+
+@pytest.mark.parametrize("case", ["terrain, camera", "terrain, scrambled, active + tmax",
+                                  "light, up"])
+def test_instance_walk_matches_jax(stress, stress_rays, case):
+    """intersect_scene's plain route on a large scene with only_instance
+    walks that instance's BLAS in object space (intersect_instances,
+    traverse_shape), as svgf_tpu's intersect_scene with its Pallas route
+    off (`:322-354`): the same winners, t in world units."""
+    ja, ta = stress
+    inst = 1 if case.startswith("light") else 0
+    ro, rd = _light_rays() if inst else stress_rays[case.split(", ")[1]]
+    kw = {"only_instance": inst}
+    if case.endswith("tmax"):
+        rng = np.random.default_rng(9)
+        kw["active"] = rng.uniform(size=ro.shape[0]) < 0.8
+        kw["tmax"] = rng.uniform(0.5, 4.0, ro.shape[0]).astype(np.float32)
+    got = intersect_scene(ta, _t(ro), _t(rd), "off",
+                          **{k: _t(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()})
+    want = _j_plain(ja, ro, rd, **kw)
+    assert (want.dist < kw.get("tmax", 1e29)).mean() > 0.1
+    _assert_same_hits(got, want)
+
+
+def test_traverse_shape_matches_jax(stress, stress_rays):
+    """traverse_shape itself on object-space component rays, from a
+    running Hit that the walk must beat, against svgf_tpu's."""
+    ja, ta = stress
+    ro, rd = stress_rays["scrambled"]
+    R = ro.shape[0]
+    rng = np.random.default_rng(10)
+    active = rng.uniform(size=R) < 0.9
+    start = rng.uniform(1.0, 6.0, R).astype(np.float32)
+    inv = ta.inst_inv_transform[0]
+    ro_o = tuple(_np(x) for x in transform_point3(inv, tuple(_t(ro).unbind(1))))
+    rd_o = tuple(_np(x) for x in transform_vector3(inv, tuple(_t(rd).unbind(1))))
+    shape, mat = int(ta.inst_shape[0]), int(ta.inst_material[0])
+    prim, inst = np.full(R, 7, np.int32), np.full(R, 5, np.int32)
+    h0 = JHit.none((R,))._replace(dist=jnp.asarray(start), prim=jnp.asarray(prim),
+                                  instance=jnp.asarray(inst))
+    want = jax.jit(lambda a, o, d, m: j_traverse_shape(a, shape, o, d, h0, 0, mat, m))(
+        ja, tuple(map(jnp.asarray, ro_o)), tuple(map(jnp.asarray, rd_o)), jnp.asarray(active))
+    zf = torch.zeros(R)
+    got = traverse_shape(ta, shape, tuple(map(_t, ro_o)), tuple(map(_t, rd_o)),
+                         Hit(_t(start), zf, zf, _t(prim), _t(inst), torch.zeros_like(_t(inst))),
+                         0, mat, _t(active))
+    assert 0.1 < (_np(want.dist) < start).mean() < 0.9
+    _assert_same_hits(got, jax.tree.map(np.asarray, want))
+
+
+def test_instance_walk_gradient_matches_jax_jvp(stress, stress_rays):
+    """d dist / d ro through the per-instance walk (the winner picked, its
+    t/u/v recomputed in object space under autograd) against the forward-
+    mode derivative of svgf_tpu's walk (jax.jvp: reverse mode does not
+    pass lax.while_loop), one tangent per axis of the origin."""
+    ja, ta = stress
+    ro, rd = stress_rays["camera"]
+    o = _t(ro).requires_grad_(True)
+    hit = intersect_scene(ta, o, _t(rd), "off", only_instance=0)
+    (got,) = torch.autograd.grad(hit.dist.sum(), o)
+    set_pallas_mode("off")
+    try:
+        dist = lambda x: j_intersect_scene(ja, x, jnp.asarray(rd), only_instance=0).dist
+        jvp = jax.jit(lambda x, t: jax.jvp(dist, (x,), (t,))[1])
+        want = np.stack([np.asarray(jvp(jnp.asarray(ro), jnp.asarray(np.eye(3, dtype=np.float32)[k]
+                                                                      * np.ones_like(ro))))
+                         for k in range(3)], axis=-1)
+    finally:
+        set_pallas_mode("auto")
+    hits = _np(hit.dist) < 1e29
+    assert hits.mean() > 0.3 and np.abs(want[hits]).max() > 0.1
+    np.testing.assert_allclose(_np(got), want, atol=1e-4)
+
+
+def _mixed_rays(stress_rays, n=128):
+    return tuple(np.concatenate([stress_rays["camera"][k][:n], stress_rays["scrambled"][k][:n]])
+                 for k in range(2))
+
+
+def test_brute_force_matches_jax_and_the_walks(stress, stress_rays):
+    """intersect_brute_force against svgf_tpu's, and the port's walks on
+    the NumPy tree (the scene walk and every instance's BLAS walk)
+    against it."""
+    ja, ta = stress
+    ro, rd = _mixed_rays(stress_rays)
+    got = intersect_brute_force(ta, _t(ro), _t(rd))
+    want = _j_plain(ja, ro, rd, fn=j_brute_force)
+    _assert_same_hits(got, want)
+    for walk in (traverse_scene_bvh, intersect_instances):
+        _assert_hits_agree(walk(ta, _t(ro), _t(rd)), got)
+
+
+@pytest.fixture(scope="module")
+def native_stress():
+    """stress_scene(n=96) flattened by the port with its default, native
+    builder (tests/test_torch_native.py holds it to svgf_tpu's)."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("SVGF_NATIVE", "1")
+    try:
+        scene = stress_scene(n=96)
+        return scene, scene.flatten(device="cpu")
+    finally:
+        mp.undo()
+
+
+def test_native_tree_walks_match_brute_force(stress, native_stress, stress_rays):
+    """On the native tree, which orders the soup and the scene BVH other
+    than the NumPy tree, the scene walk, the instance walks and the model
+    of K6's nearest-first walk find the brute force's hits."""
+    _, ta = native_stress
+    assert not torch.equal(ta.world_tri_prim, stress[1].world_tri_prim)
+    ro, rd = (_t(x) for x in _mixed_rays(stress_rays))
+    brute = intersect_brute_force(ta, ro, rd)
+    for walk in (traverse_scene_bvh, intersect_instances):
+        _assert_hits_agree(walk(ta, ro, rd), brute)
+    t0 = start_dist(None, ro.shape[0], "cpu")
+    want_t, want_col = _walk_scene_bvh(ta, ro, rd, t0, None, None)
+    got_t, got_col, _, _ = _nearest_first_walk(KI.child_pair_bvh(ta), ta, ro, rd, t0)
+    assert torch.equal(got_col >= 0, want_col >= 0) and torch.equal(got_t, want_t)
+
+
+def test_k6_premises_on_the_native_tree(native_stress):
+    """What K6 needs of a tree, on the native one: child_pair_bvh accepts
+    it (a binary tree of one-triangle leaves, children after their
+    parent); its depth is the skip-link tree's, from which spill_entries
+    sizes the scratch; and the soup and the stitched scene BVH follow the
+    native BLAS: each instance's soup columns hold its shape's native leaf
+    order, and the scene BVH's leaves reach every soup column once."""
+    scene, ta = native_stress
+    bvh = KI.child_pair_bvh(ta)
+    skip, leaf = ta.wbvh_skip.long(), ta.wbvh_leaf_tri.long()
+    inner = torch.nonzero(leaf < 0).flatten()
+    ranges = torch.zeros(skip.shape[0] + 1, dtype=torch.long)
+    ranges.index_add_(0, inner, torch.ones_like(inner))
+    ranges.index_add_(0, skip[inner], -torch.ones_like(inner))
+    assert bvh.depth == int(torch.cumsum(ranges, 0)[:-1].max())
+    assert KI.spill_entries(bvh.depth) == 0 < bvh.depth <= KI.BVH_STACK
+    for i, (start, count) in enumerate(ta.meta.inst_world_range):
+        sh = scene.shapes[scene.instances[i].shape]
+        mp = pytest.MonkeyPatch()
+        mp.setenv("SVGF_NATIVE", "1")
+        try:
+            order = build_blas(sh.tri_pos).tri_order
+        finally:
+            mp.undo()
+        base = int(ta.shape_tri_start[scene.instances[i].shape])
+        np.testing.assert_array_equal(_np(ta.world_tri_prim[start:start + count]), order + base)
+    n = ta.meta.n_world_tris
+    assert torch.equal(torch.sort(leaf[leaf >= 0]).values, torch.arange(n))
+
+
+# ---------------------------------------------------------------------------
+# the small pieces: geometry helpers and the TLAS
+# ---------------------------------------------------------------------------
+
+
+def test_geometry_helpers_match_jax():
+    """ray_triangle and ray_aabb on (..., 3) arrays (a ray against every
+    triangle and box by broadcasting), transform_point3 and
+    transform_vector3 on component tuples, against svgf_tpu's on seeded
+    inputs: hit masks equal, values to float32 rounding."""
+    rng = np.random.default_rng(12)
+    R, T = 64, 48
+    ro = rng.uniform(-1, 1, (R, 1, 3)).astype(np.float32)
+    rd = rng.standard_normal((R, 1, 3)).astype(np.float32)
+    v = rng.uniform(-1.5, 1.5, (3, 1, T, 3)).astype(np.float32)
+    lo = rng.uniform(-1.5, 0.5, (1, T, 3)).astype(np.float32)
+    hi = (lo + rng.uniform(0.1, 1.0, (1, T, 3))).astype(np.float32)
+    tmax = rng.uniform(0.5, 5.0, (R, 1)).astype(np.float32)
+    want = JG.ray_triangle(*map(jnp.asarray, (ro, rd, v[0], v[1], v[2])))
+    got = TG.ray_triangle(*map(_t, (ro, rd, v[0], v[1], v[2])))
+    assert 0.02 < _np(got[3]).mean() < 0.98
+    hit = np.asarray(want[3])
+    np.testing.assert_array_equal(_np(got[3]), hit)
+    # t is MAX_LENGTH off the triangle; u and v are compared where they
+    # are a hit's barycentrics (elsewhere a near-parallel ray's 1/a makes
+    # them arbitrary)
+    np.testing.assert_allclose(_np(got[0]), np.asarray(want[0]), rtol=1e-5, atol=1e-6)
+    for g, w in zip(got[1:3], want[1:3]):
+        np.testing.assert_allclose(_np(g)[hit], np.asarray(w)[hit], rtol=1e-5, atol=1e-6)
+    inv = 1.0 / rd
+    want = np.asarray(JG.ray_aabb(*map(jnp.asarray, (ro, inv, lo, hi, tmax))))
+    got = _np(TG.ray_aabb(*map(_t, (ro, inv, lo, hi, tmax))))
+    assert 0.02 < (want < 1e29).mean() < 0.98
+    np.testing.assert_array_equal(got < 1e29, want < 1e29)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    m = rng.uniform(-2, 2, (4, 4)).astype(np.float32)
+    p = tuple(rng.uniform(-3, 3, (3, R)).astype(np.float32))
+    for jf, tf in ((JG.transform_point3, TG.transform_point3),
+                   (JG.transform_vector3, TG.transform_vector3)):
+        want = jf(jnp.asarray(m), tuple(map(jnp.asarray, p)))
+        got = tf(_t(m), tuple(map(_t, p)))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-6, atol=1e-6)
+
+
+def test_build_tlas_matches_jax():
+    """build_tlas over 9 seeded instance boxes and over none: svgf_tpu's
+    TLAS bit for bit."""
+    rng = np.random.default_rng(13)
+    lo = rng.uniform(-5, 5, (9, 3)).astype(np.float32)
+    hi = (lo + rng.uniform(0.1, 2.0, (9, 3))).astype(np.float32)
+    for args in ((lo, hi), (lo[:0], hi[:0])):
+        got, want = build_tlas(*args), j_build_tlas(*args)
+        for f in ("node_min", "node_max", "skip", "leaf_instance"):
+            g, w = getattr(got, f), getattr(want, f)
+            assert g.dtype == w.dtype and g.shape == w.shape and g.tobytes() == w.tobytes(), f
+    assert (build_tlas(lo, hi).leaf_instance >= 0).sum() == 9

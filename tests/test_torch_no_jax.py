@@ -52,6 +52,23 @@ loss, grads, _ = train(params, r.arrays, TemporalState.initial(16, 16, torch.flo
                        torch.zeros(16, 16, 3))
 assert grads["mat_colour"].abs().max() > 0
 assert_sharded_parity("without jax", loss, grads, loss, grads)
+# the native builder, the per-shape walk, the brute force and the orbit
+# script need no JAX either
+from svgf_tpu_torch.accel import native
+from svgf_tpu_torch.ops.intersect import intersect_brute_force, intersect_scene
+from svgf_tpu_torch.scenes.stress import stress_scene
+from svgf_tpu_torch.scripts import render_orbit
+os.environ["SVGF_NATIVE"] = "1"
+assert native.available()
+big = stress_scene(n=96).flatten(device="cpu")
+ro = torch.tensor([[0.0, 0.5, 0.0], [0.3, 0.5, 0.2]])
+rd = torch.tensor([[0.0, 1.0, 0.0], [0.0, 1.0, 0.0]])
+assert torch.equal(intersect_scene(big, ro, rd, "off", only_instance=1).instance,
+                   intersect_brute_force(big, ro, rd).instance)
+with tempfile.TemporaryDirectory() as d:
+    run = render_orbit.main(["--device", "cpu", "--width", "16", "--height", "16", "--frames", "2",
+                             "--bounces", "1", "--steps", "1", "--out", d])
+    assert len(run.pngs) == 2 and os.path.exists(os.path.join(d, "ckpt.npz"))
 assert not any(m in ("jax", "svgf_tpu") or m.startswith(("jax.", "jaxlib", "svgf_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("rendered without jax")

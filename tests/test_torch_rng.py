@@ -55,3 +55,13 @@ def test_uniform_fields_match_jax(seed):
     for _ in range(3):
         np.testing.assert_array_equal(ts.uniform().numpy(), np.asarray(js.uniform((n,))))
         np.testing.assert_array_equal(ts.uniform2().numpy(), np.asarray(js.uniform2((n,))))
+
+
+@pytest.mark.parametrize("site", [1, 2, 987])
+def test_hash_uniform_matches_jax(site):
+    """hash_uniform, svgf_tpu's one-off field at explicit lane ids, bit for bit."""
+    lanes = np.concatenate([np.arange(0, 600, 3), [2**31 - 1, 2**32 - 1]]).astype(np.uint32)
+    jk = jax.random.fold_in(jax.random.key(7), site)
+    want = np.asarray(jsampling.hash_uniform(jk, jnp.asarray(lanes), site=site))
+    got = tsampling.hash_uniform(_data(jk), torch.from_numpy(lanes.astype(np.int64)), site=site)
+    np.testing.assert_array_equal(got.numpy(), want)

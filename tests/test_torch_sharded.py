@@ -312,8 +312,9 @@ def test_sharded_filter_route_matches_jax(port_frames, jax_frames, steps, mode):
         for tap in ("temporal", "moments_filtered", "atrous"):
             np.testing.assert_allclose(getattr(got_outs[f], tap).numpy(), getattr(want_outs[f], tap),
                                        atol=3e-5, err_msg=f"frame {f} {tap}")
-        d = np.abs(got_outs[f].final.numpy() - want_outs[f].final)
-        assert d.mean() < 1e-4 and (d > 5e-3).mean() == 0.0, (f, d.mean(), d.max())
+        # the other stages' bar (measured max 9.1e-6 on the CPU over the four cases)
+        np.testing.assert_allclose(got_outs[f].final.numpy(), want_outs[f].final, atol=3e-5,
+                                   err_msg=f"frame {f} final")
     for field in ("color", "moments"):
         np.testing.assert_allclose(getattr(got_state, field).numpy(), getattr(want_state, field),
                                    atol=3e-5, err_msg=f"state {field}")
