@@ -68,10 +68,12 @@ Phases, each failing loudly (no phase catches an exception):
      keep the entries past the stack in K6's global scratch) on its 480x270
      primary rays and SCRAMBLED rays against the plain walk; on its 1080p
      primary rays the Hit against the recompute of its winner, visits a
-     ray, Mrays/s and K6 alone; FRAMES 1080p frames through the kernels
-     with launch counts, and a frame of kernels against plain at 480x270
-     with one bounce (the plain walk is a host loop of thousands of steps
-     on this scene);
+     ray, Mrays/s and K6 alone, and K6's bound on them (the terrain's
+     formula; the kernels line carries it and K6 alone as
+     nested_bound_ms, nested_alone_ms); FRAMES 1080p frames through the
+     kernels with launch counts, and a frame of kernels against plain at
+     480x270 with one bounce (the plain walk is a host loop of thousands
+     of steps on this scene);
  12. materials: Renderer.step on the materials scene (scenes/materials.py:
      PBR, mirror, glass and volumetric blocks, textured and normal-mapped
      walls with alpha, an environment) at 1920x1080 through K1-K5 for
@@ -150,6 +152,16 @@ Phases, each failing loudly (no phase catches an exception):
      launches a frame, the PNGs) and at its 640x360 default, then --resume
      for 3 frames, whose last frame equals the same frames rendered from
      the first run's state in memory (max error 0).
+ 16. svgf_tpu's quick start with only the package name changed (runs
+     after phase 6): `from svgf_tpu_torch import RenderConfig`, `from
+     svgf_tpu_torch.scenes import cornell_box`, Renderer on its default
+     device at 640x360 with the configuration's defaults, then at
+     __graft_entry__.entry()'s 512x288 (3 bounces, batch 1, 5 a-trous
+     steps, fp16 state): FRAMES frames each with K1-K5's launches held to
+     expected_launches, the image, frame FRAMES against the plain route
+     (phase 6's bars), the frame ms beside the card's name and power
+     limit; Hit.none on the card by default, and SceneArrays' counts of the
+     card's arrays equal to the host flatten's.
 Every kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its FP32 operations on these inputs over 67 TFLOP/s
 (the H100 SXM's published peaks at 700 W).
@@ -1318,6 +1330,15 @@ def run_frames(scene, orbit, h, w, use_pallas: str, chunks: int, frames: int = F
     cam0 = scene.cameras[0]
     r = Renderer(scene, render_config(h, w, use_pallas, chunks, state_dtype, bounces),
                  device=DEVICE)
+    out, stages = step_frames(r, orbit, frames)
+    scene.cameras[0] = cam0   # the next run starts from the same camera
+    return out, stages, r
+
+
+def step_frames(r, orbit, frames: int = FRAMES):
+    """`frames` frames of r.step(), the camera set by orbit(f) (None keeps
+    it) before frame f. Returns (the last FrameOutputs, per-frame stage
+    milliseconds)."""
     stages = []
     out = None
     for f in range(frames):
@@ -1331,17 +1352,17 @@ def run_frames(scene, orbit, h, w, use_pallas: str, chunks: int, frames: int = F
         ms = {b: events[a].elapsed_time(events[b]) for a, b in zip(names, names[1:])}
         ms["frame"] = events[names[0]].elapsed_time(events[names[-1]])
         stages.append(ms)
-    scene.cameras[0] = cam0   # the next run starts from the same camera
-    return out, stages, r
+    return out, stages
 
 
-def expected_launches(intersector: str, chunks: int, meta, frames: int = FRAMES) -> dict:
+def expected_launches(intersector: str, chunks: int, meta, frames: int = FRAMES,
+                      steps: int = 5) -> dict:
     """Kernel launches per `frames` frames, derived from render_frame and the
     scene's SceneMeta `meta`: one of each filter stage, one a-trous launch
-    a step; the intersector once per G-buffer chunk and, per trace chunk
-    and MIS bounce, once for the bounce's batched rays and, in a scene with
-    media, once per area light for the scatter event's only_instance
-    re-trace (the primary hit comes from the G-buffer)."""
+    for each of the `steps`; the intersector once per G-buffer chunk and,
+    per trace chunk and MIS bounce, once for the bounce's batched rays and,
+    in a scene with media, once per area light for the scatter event's
+    only_instance re-trace (the primary hit comes from the G-buffer)."""
     from svgf_tpu_torch.config import RenderConfig, SamplingMode
     from svgf_tpu_torch.kernels.launch import LAUNCHES
     from svgf_tpu_torch.render.pathtrace import n_area_lights
@@ -1352,7 +1373,7 @@ def expected_launches(intersector: str, chunks: int, meta, frames: int = FRAMES)
     per_frame = chunks * (1 + cfg.tracing.batch * (cfg.tracing.bounces * per_bounce
                                                    + (not cfg.hybrid_primary)))
     launches = dict.fromkeys(LAUNCHES, 0)
-    launches.update(temporal=frames, moments=frames, atrous=5 * frames, taa=frames)
+    launches.update(temporal=frames, moments=frames, atrous=steps * frames, taa=frames)
     launches[intersector] = frames * per_frame
     return launches
 
@@ -1684,6 +1705,18 @@ def check_nested_scene() -> dict:
         log(f"  {name}: {n} rays, {t['ms']:.4f} ms through the wrapper ({n / (t['ms'] * 1e3):.1f} "
             f"Mrays/s), {t['alone_ms']:.4f} ms alone ({n / (t['alone_ms'] * 1e3):.1f} Mrays/s)")
         res[name] = {**t, **counts}
+    # K6's bound on the 1080p primary rays, as check_clustered_kernel's on
+    # the terrain: its records (two box tests each) and triangle tests, the
+    # rays, records and soup read once; the scratch past the stack is the
+    # design's traffic, not the work's, and is not counted
+    ro, rd = rays["primary"]
+    soup, bvh = KI.packed_scene(arrays)
+    cp = res["primary"]
+    b = bound(nbytes(ro, rd, *KI.intersect_clustered_kernel(arrays, ro, rd), bvh.nodes, soup),
+              ro.shape[0] * (cp["visits"] * 2 * OPS_SLAB + cp["tests"] * OPS_MT + OPS_RECOMPUTE))
+    log(f"  primary: bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bound_bytes']} B, "
+        f"{b['bound_ops']} ops); K6 alone at {100 * b['bound_ms'] / cp['alone_ms']:.1f}% of it")
+    res["bound"] = b
 
     reset_launches()
     out, stages, r = run_frames(scene, nested_orbit, H, W, "on", TRACE_CHUNKS)
@@ -2863,6 +2896,76 @@ def check_native_and_orbit(stress, numpy_arrays, numpy_flatten_s: float,
     return res
 
 
+# ---------------------------------------------------------------------------
+# svgf_tpu's quick start with only the package name changed
+# ---------------------------------------------------------------------------
+
+
+def quick_start_frames(label, scene, config, smi: str) -> dict:
+    """FRAMES frames of Renderer(scene, config).step() on the Renderer's
+    default device, the camera kept, the launch counts set to 0 just before
+    them and read just after and held to expected_launches; the image; frame
+    FRAMES against the same frames on the plain route (phase 6's bars).
+    Returns the frame ms of both routes, medians of frames 2-FRAMES."""
+    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
+    from svgf_tpu_torch.render.pipeline import Renderer
+
+    keep = lambda f: None
+    reset_launches()
+    r = Renderer(scene, config)
+    out, stages = step_frames(r, keep, FRAMES)
+    launches = dict(LAUNCHES)
+    assert r.device.type == "cuda", r.device
+    log(f"{label} launches over {FRAMES} frames: {launches}")
+    expect = expected_launches("intersect_dense", config.trace_chunks, r.arrays.meta, FRAMES,
+                               config.svgf.spatial_filter_steps)
+    assert launches == expect, (label, launches, expect)
+    check_image(out, config.height, config.width, label)
+    plain_out, plain_stages = step_frames(
+        Renderer(scene, dataclasses.replace(config, use_pallas="off")), keep, FRAMES)
+    compare_frames(label, out, plain_out)
+    ms = {"frame_ms": statistics.median(st["frame"] for st in stages[1:]),
+          "plain_frame_ms": statistics.median(st["frame"] for st in plain_stages[1:])}
+    log(f"{label} frame ms (median of frames 2-{FRAMES}) on {smi}: kernels {ms['frame_ms']:.3f}, "
+        f"plain {ms['plain_frame_ms']:.3f}; every frame {[round(st['frame'], 3) for st in stages]}")
+    return ms
+
+
+def check_quick_start(smi: str) -> dict:
+    """svgf_tpu's quick start (its README) with only the package name
+    changed: Renderer(cornell_box(aspect=16/9), RenderConfig(width=640,
+    height=360)) on its default device, the configuration's defaults (3
+    a-trous steps, 1 trace chunk, fp16 state); then __graft_entry__.entry()'s
+    frame: 512x288, 3 bounces, batch 1, 5 a-trous steps, fp16 state. Each
+    through quick_start_frames. Also Hit.none on the card by default, and
+    the SceneArrays counts of the card's arrays against the host scene's."""
+    from svgf_tpu_torch import RenderConfig, SVGFConfig, TracingConfig
+    from svgf_tpu_torch.ops.intersect import Hit
+    from svgf_tpu_torch.scenes import cornell_box
+
+    res = {"quick start 640x360": quick_start_frames(
+        "quick start 640x360", cornell_box(aspect=16/9), RenderConfig(width=640, height=360), smi)}
+    w, h = 512, 288
+    scene = cornell_box(aspect=w / h)
+    for cam in scene.cameras:
+        cam.aspect = w / h
+    cfg = RenderConfig(width=w, height=h, tracing=TracingConfig(bounces=3, batch=1),
+                       svgf=SVGFConfig(spatial_filter_steps=5))
+    assert cfg.state_dtype == "float16"
+    res["entry 512x288"] = quick_start_frames("entry 512x288", scene, cfg, smi)
+
+    none = Hit.none((H * W,))
+    assert all(x.device.type == "cuda" for x in none) and not bool(none.valid.any())
+    card, host = scene.flatten(), scene.flatten(device="cpu")
+    counts = {c: (getattr(card, c), getattr(host, c))
+              for c in ("n_triangles", "n_instances", "n_lights", "n_environments")}
+    log(f"Hit.none on {none.dist.device}; SceneArrays counts (card, host): {counts}")
+    assert card.device.type == "cuda" and all(a == b for a, b in counts.values()), counts
+    assert counts["n_triangles"][0] == sum(s.n_triangles for s in scene.shapes)
+    assert counts["n_instances"][0] == len(scene.instances)
+    return res
+
+
 def compare_times() -> dict:
     """The times the redesigns of K2/K8, K6 and K4/K10 should move, measured
     on the tree of the port that is imported, with only the wrappers'
@@ -2971,6 +3074,7 @@ def main() -> int:
     timed["intersect_clustered"] = phase("K6", check_clustered_kernel, arrays, *stress_rays(arrays))
     launches, matte = phase("main path", check_main_path)
     phase("main path, bf16 state", check_bf16_path)
+    phase("quick start", check_quick_start, smi)
     # K9a is K3's chain (one function in the port's one layout): its row is K3's call
     timed["atrous_chain"], launches["atrous_chain"] = timed["atrous"], launches["atrous"]
     sharded_launches = phase("sharded route", check_sharded_route)
@@ -2978,7 +3082,10 @@ def main() -> int:
         launches[name] = sharded_launches[name]
     stress_launches = phase("stress path", check_stress_path, stress)
     launches["intersect_clustered"] = stress_launches["intersect_clustered"]
-    phase("nested scene", check_nested_scene)
+    nested = phase("nested scene", check_nested_scene)
+    timed["intersect_clustered"].update(nested_bound_ms=nested["bound"]["bound_ms"],
+                                        nested_bound_by=nested["bound"]["bound_by"],
+                                        nested_alone_ms=nested["primary"]["alone_ms"])
     phase("materials", check_materials_path, stress, arrays, matte)
     phase("K2 designs", lambda: check_moments_designs(moments_design_cases(stress)))
     train_launches = phase("gradients and train steps", check_gradients, arrays)
@@ -2988,11 +3095,14 @@ def main() -> int:
     phase("scene I/O and edits", check_scene_io_and_edits, stress, arrays)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # K6 also carries the yardstick bound that its earlier design was read against
+    # K6 also carries the yardstick bound that its earlier design was read
+    # against, and its bound and time alone on the nested scene's primary rays
+    extra = ("yardstick_bound_ms", "yardstick_bound_by", "nested_bound_ms", "nested_bound_by",
+             "nested_alone_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **{k: timed[name][k] for k in keys},
-         **{k: timed[name][k] for k in ("yardstick_bound_ms", "yardstick_bound_by") if k in timed[name]},
+         **{k: timed[name][k] for k in extra if k in timed[name]},
          **({"train_step_launches": train_launches[name]} if name in train_launches else {})}
         for name, src, rep in KERNELS
     ]

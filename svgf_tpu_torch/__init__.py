@@ -8,12 +8,26 @@ sits where its JAX counterpart does; svgf_tpu stays the reference the
 tests hold it against. The port imports neither JAX nor svgf_tpu: it keeps
 its own copies of the JAX-free modules it needs (config, accel).
 
-    from svgf_tpu_torch.config import RenderConfig
-    from svgf_tpu_torch.scenes.cornell import cornell_box
+    from svgf_tpu_torch import RenderConfig
+    from svgf_tpu_torch.scenes import cornell_box
     from svgf_tpu_torch.render.pipeline import Renderer
 
-    r = Renderer(cornell_box(aspect=16 / 9), RenderConfig(width=640, height=360))
+    r = Renderer(cornell_box(aspect=16/9), RenderConfig(width=640, height=360))
     out = r.step()   # on the card; Renderer(..., device="cpu") runs on the CPU
+
+The package namespaces export what svgf_tpu's do (`svgf_tpu_torch.core`,
+`.accel`, `.scenes`, `.io`, `.parallel`), so svgf_tpu's imports work with
+only the package name changed.
 """
 
 __version__ = "0.1.0"
+
+from svgf_tpu_torch.config import RenderConfig, SVGFConfig, TracingConfig, SamplingMode, DebugOutput
+
+__all__ = [
+    "RenderConfig",
+    "SVGFConfig",
+    "TracingConfig",
+    "SamplingMode",
+    "DebugOutput",
+]

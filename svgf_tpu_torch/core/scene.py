@@ -276,6 +276,22 @@ class SceneArrays:
     def device(self) -> torch.device:
         return self.tri_pos.device
 
+    @property
+    def n_triangles(self) -> int:
+        return self.tri_pos.shape[0]
+
+    @property
+    def n_instances(self) -> int:
+        return self.inst_shape.shape[0]
+
+    @property
+    def n_lights(self) -> int:
+        return self.light_instance.shape[0]
+
+    @property
+    def n_environments(self) -> int:
+        return self.env_emission.shape[0]
+
     @staticmethod
     def tensor_fields() -> list[str]:
         return [f.name for f in dataclasses.fields(SceneArrays) if f.name != "meta"]

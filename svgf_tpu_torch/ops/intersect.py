@@ -48,6 +48,23 @@ class Hit(NamedTuple):
     instance: torch.Tensor  # (R,) i32
     material: torch.Tensor  # (R,) i32
 
+    @staticmethod
+    def none(shape, device="cuda") -> "Hit":
+        """No hit on any lane: MAX_LENGTH distances, zero u/v and ids."""
+        z = torch.zeros(shape, dtype=torch.int32, device=device)
+        return Hit(
+            dist=torch.full(shape, MAX_LENGTH, dtype=torch.float32, device=device),
+            u=torch.zeros(shape, dtype=torch.float32, device=device),
+            v=torch.zeros(shape, dtype=torch.float32, device=device),
+            prim=z,
+            instance=z,
+            material=z,
+        )
+
+    @property
+    def valid(self) -> torch.Tensor:
+        return self.dist < MAX_LENGTH
+
     def chunk(self, start: int, stop: int) -> "Hit":
         return Hit(*(x[start:stop] for x in self))
 
@@ -231,13 +248,6 @@ def traverse_shape(scene, shape_id: int, ro, rd, hit: Hit, instance_id: int, mat
     )
 
 
-def _none_hit(t0) -> Hit:
-    """svgf_tpu's Hit.none with dist = the start distance."""
-    zf = torch.zeros_like(t0)
-    zi = torch.zeros(t0.shape, dtype=torch.int32, device=t0.device)
-    return Hit(dist=t0, u=zf, v=zf, prim=zi, instance=zi, material=zi)
-
-
 def intersect_instances(scene, ro, rd, active=None, any_hit: bool = False, tmax=None,
                         only_instance=None) -> Hit:
     """Closest hit by a walk of each instance's BLAS in object space
@@ -245,7 +255,7 @@ def intersect_instances(scene, ro, rd, active=None, any_hit: bool = False, tmax=
     `only_instance` alone: rays that miss an instance's world box skip its
     walk; the others are taken to object space by its inverse transform."""
     R, dev = ro.shape[0], ro.device
-    hit = _none_hit(start_dist(tmax, R, dev))
+    hit = Hit.none((R,), dev)._replace(dist=start_dist(tmax, R, dev))
     if active is None:
         active = torch.ones((R,), dtype=torch.bool, device=dev)
     roc, rdc = components(ro), components(rd)
@@ -273,7 +283,7 @@ def intersect_brute_force(scene, ro, rd) -> Hit:
     triangles). A later triangle wins only when strictly nearer, so the
     winner is svgf_tpu's first minimum; prim is the global triangle id."""
     R, dev = ro.shape[0], ro.device
-    hit = _none_hit(torch.full((R,), MAX_LENGTH, dtype=torch.float32, device=dev))
+    hit = Hit.none((R,), dev)
     for i in range(scene.inst_shape.shape[0]):
         inv = scene.inst_inv_transform[i]
         ro_o, rd_o = transform_point(inv, ro), transform_vector(inv, rd)

@@ -49,9 +49,14 @@ def camera_rays(cam_frame, cam_proj, h: int, w: int, jitter=None, row0: int = 0,
     return ro.reshape(-1, 3), rd.reshape(-1, 3)
 
 
-def project_to_pixel(view, cam_proj, pos, h: int, w: int):
-    """World position -> (px, py) pixel coords (y down), perspective divide.
-    `view` is the inverse of the camera frame."""
+def project_to_pixel(cam_frame, cam_proj, pos, h: int, w: int):
+    """World position -> (px, py) pixel coords (y down), perspective divide."""
+    return _project_view(torch.linalg.inv(cam_frame), cam_proj, pos, h, w)
+
+
+def _project_view(view, cam_proj, pos, h: int, w: int):
+    """project_to_pixel with the camera frame's inverse `view` given: the
+    G-buffer inverts each frame once for all its chunks."""
     p_view = transform_point(view, pos)
     clip = transform_point(cam_proj, p_view)
     wc = -p_view[..., 2]  # P[3] row = (0,0,-1,0)
@@ -78,8 +83,8 @@ def _gbuffer_rays(scene, frame, view, prev_view, proj, ro, rd, h, w, mode):
     dp = pos - frame[:3, 3]
     depth = torch.sqrt((dp * dp).sum(-1))
 
-    px_cur, py_cur = project_to_pixel(view, proj, pos, h, w)
-    px_prev, py_prev = project_to_pixel(prev_view, proj, pos, h, w)
+    px_cur, py_cur = _project_view(view, proj, pos, h, w)
+    px_prev, py_prev = _project_view(prev_view, proj, pos, h, w)
     motion = torch.stack([px_prev - px_cur, py_prev - py_cur], dim=-1)
 
     okf = ok[..., None]

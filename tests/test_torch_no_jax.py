@@ -12,6 +12,18 @@ _RENDER_WITHOUT_JAX = """
 import sys
 sys.modules["jax"] = None          # any import of jax now raises ImportError
 sys.modules["svgf_tpu"] = None     # and so does any import of the JAX package
+# the package namespaces first, in a fresh interpreter, then svgf_tpu's
+# quick start (README.md) with only the package name changed, on the CPU
+from svgf_tpu_torch import RenderConfig, SVGFConfig, TracingConfig, SamplingMode, DebugOutput
+from svgf_tpu_torch.core import *
+from svgf_tpu_torch.accel import *
+from svgf_tpu_torch.scenes import cornell_box, default_scene
+from svgf_tpu_torch.render.pipeline import Renderer
+
+r = Renderer(cornell_box(aspect=16/9), RenderConfig(width=32, height=24), device="cpu")
+out = r.step()            # FrameOutputs: radiance, temporal, atrous, final, gbuffer
+assert out.final.shape == (24, 32, 3) and bool(out.final.isfinite().all())
+assert Scene is type(cornell_box()) and BLAS.__module__ == "svgf_tpu_torch.accel.bvh"
 import numpy as np
 from svgf_tpu_torch.config import RenderConfig, SVGFConfig, TracingConfig
 from svgf_tpu_torch.render.pipeline import Renderer
