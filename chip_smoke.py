@@ -162,6 +162,23 @@ Phases, each failing loudly (no phase catches an exception):
      (phase 6's bars), the frame ms beside the card's name and power
      limit; Hit.none on the card by default, and SceneArrays' counts of the
      card's arrays equal to the host flatten's.
+ 17. the measuring tools (svgf_tpu_torch/scripts/, runs before 13), each
+     main on the card at its defaults: measure_balance (8 bands of the
+     360x640 Cornell frame, 5 bounces) through K5 against the plain route
+     (every band's live fraction within 1e-3); profile_trace at 1080p over
+     48, 32, 8, 4, 2 and 1 trace chunks, the first frame's radiance equal
+     at every count (max error 0), then the G-buffer alone;
+     profile_trace_parts (259,200 lanes, 24 calls a rep), profile_stages
+     (1080p), profile_filter (bench.py's frame) and profile_moments (three
+     history fields); every row's launches in one rep held to what the part
+     launches (K5 24 times for "intersect_scene (pallas)", none for the
+     plain sweep), the profiler's record of every launch of the row's
+     session, every time finite and > 0; prints each tool's rows and one
+     JSON line of them beside the card's name and power limit.
+Each kernel-alone time, device-kernel count and profiled frame comes from
+svgf_tpu_torch/scripts/timing.py profile_calls (a warm-up call and a
+marker kernel a session, sessions repeated until the profiler recorded
+every launch); a kernel-alone time fails unless it did.
 Every kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its FP32 operations on these inputs over 67 TFLOP/s
 (the H100 SXM's published peaks at 700 W).
@@ -200,7 +217,6 @@ LATER_FRAME = 16
 # 2 lane chunks: the 1080p frame's trace in two halves (PERF.md section 5).
 TRACE_CHUNKS = 2
 TIMED_ITERS = 20
-PROFILE_SESSIONS = 10         # the most profiler sessions a measurement tries (profiled)
 STRESS_N = 230                # stress_scene(n=230): 104,884 world triangles
 SMALL_H, SMALL_W = 270, 480   # the stress path's kernels-vs-plain frames
 SCRAMBLED = 65536
@@ -283,55 +299,18 @@ def cuda_ms(fn, iters: int = TIMED_ITERS, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled(fn, iters: int, cpu: bool = False, per_call: int | None = None):
-    """fn() `iters` times under torch.profiler (the card, and the host if
-    `cpu`); returns (the profiler, its device events, the svgf:: kernels it
-    saw, the launches the wrappers counted, or `per_call` a call of fn for
-    a launcher that no wrapper counts). The profiler now and then
-    drops kernel records of a session, so a session that saw fewer svgf::
-    kernels than were launched is run again, three times at most, and up
-    to PROFILE_SESSIONS times while no session has seen one (a session
-    that lost every record happened on the card); the one that saw the
-    most stands, and its shortfall is printed."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from svgf_tpu_torch.kernels.launch import LAUNCHES
-
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    best = None
-    for session in range(PROFILE_SESSIONS):
-        if session >= 3 and best[2] > 0:
-            break
-        before = sum(LAUNCHES.values())
-        with profile(activities=activities) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        launched = sum(LAUNCHES.values()) - before if per_call is None else per_call * iters
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        seen = sum("svgf::" in e.name for e in events)
-        if best is None or seen > best[2]:
-            best = (prof, events, seen, launched)
-        if seen == launched:
-            break
-    if best[2] != best[3]:
-        log(f"  (the profiler saw {best[2]} of {best[3]} kernel launches)")
-    return best
-
-
 def kernel_alone_ms(fn, iters: int = TIMED_ITERS, per_call: int | None = None) -> float:
     """Device milliseconds per fn() of the svgf:: kernels it launches, by
-    torch.profiler: the kernels alone, without the wrapper's host time or
-    the gaps between launches that it leaves. Where the profiler dropped
-    records, the mean of the kernels it saw stands for the launches it
-    missed. `per_call`: as for profiled."""
-    fn()
-    torch.cuda.synchronize()
-    _, events, seen, launched = profiled(fn, iters, per_call=per_call)
-    assert seen > 0, f"the profiler saw none of {launched} kernel launches"
-    us = sum(e.time_range.elapsed_us() for e in events if "svgf::" in e.name)
-    return us * launched / seen / 1e3 / iters
+    torch.profiler (svgf_tpu_torch/scripts/timing.py profile_calls): the
+    kernels alone, without the wrapper's host time or the gaps between
+    launches that it leaves. Fails unless the profiler recorded every
+    launch. `per_call`: the launches a call of fn for a launcher that no
+    wrapper counts."""
+    from svgf_tpu_torch.scripts.timing import profile_calls
+
+    p = profile_calls(fn, iters, per_call=per_call)
+    assert p.seen == p.launched > 0, f"the profiler saw {p.seen} of {p.launched} kernel launches"
+    return sum(e.time_range.elapsed_us() for e in p.events if "svgf::" in e.name) / 1e3 / iters
 
 
 def time_call(fn) -> dict:
@@ -990,10 +969,10 @@ def compare_hits(label, got, want, t0, active=None):
 def device_kernels(fn, calls: int = 10) -> tuple[list, int]:
     """(names of the device kernels the profiler saw in `calls` calls of
     fn(), the kernel launches the wrappers counted in them)."""
-    fn()
-    torch.cuda.synchronize()
-    _, events, _, launched = profiled(fn, calls, cpu=True)
-    return [e.name for e in events], launched
+    from svgf_tpu_torch.scripts.timing import profile_calls
+
+    p = profile_calls(fn, calls, cpu=True)
+    return [e.name for e in p.events], p.launched
 
 
 def dense_call_bound(ro, rd, active, out, n_tris: int) -> dict:
@@ -1286,26 +1265,25 @@ def check_clustered_kernel(arrays, rays, rng) -> dict:
 
 
 def profile_step(label, renderer, frame_ms: float) -> tuple[float, int]:
-    """One more frame under torch.profiler: the device's busy time, against
-    the profiled wall time (the profiler slows the host) and against the
-    unprofiled frame's `frame_ms`, and the operations with the most device
-    time. Returns (device busy ms, device kernels)."""
-    from torch.profiler import ProfilerActivity, profile
+    """One more frame under torch.profiler (after the one that profile_calls
+    makes first): the device's busy time, against the profiled wall time
+    (the profiler slows the host) and against the unprofiled frame's
+    `frame_ms`, and the device kernels with the most time. Returns (device
+    busy ms, device kernels)."""
+    from svgf_tpu_torch.scripts.timing import profile_calls
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):   # the tracer's
-        torch.cuda.synchronize()                                              # start-up, not timed
-    t0 = time.perf_counter()
-    prof, kernels, _, _ = profiled(renderer.step, 1, cpu=True)
-    wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    log(f"{label} profiled frame: device busy {busy:.3f} ms in {len(kernels)} device kernels; "
-        f"profiled wall {wall:.3f} ms ({100 * busy / wall:.1f}% busy), unprofiled frame "
-        f"{frame_ms:.3f} ms ({100 * busy / frame_ms:.1f}% busy)")
-    top = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
-                 key=lambda e: -e.self_device_time_total)[:10]
-    for e in top:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
-    return busy, len(kernels)
+    p = profile_calls(renderer.step, 1, cpu=True)
+    busy = sum(e.time_range.elapsed_us() for e in p.events) / 1e3
+    log(f"{label} profiled frame: device busy {busy:.3f} ms in {len(p.events)} device kernels; "
+        f"profiled wall {p.wall_ms:.3f} ms ({100 * busy / p.wall_ms:.1f}% busy), unprofiled "
+        f"frame {frame_ms:.3f} ms ({100 * busy / frame_ms:.1f}% busy)")
+    by_name: dict = {}
+    for e in p.events:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"  {us / 1e3:9.3f} ms  {n:6d}x  {name[:90]}")
+    return busy, len(p.events)
 
 
 def render_config(h, w, use_pallas: str, chunks: int, state_dtype: str = "float16",
@@ -2966,6 +2944,151 @@ def check_quick_start(smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the measuring tools (svgf_tpu_torch/scripts/) on the card
+# ---------------------------------------------------------------------------
+
+TOOL_CHUNKS = (48, 32, 8, 4, 2, 1)   # profile_trace's sweep, render_orbit's 48 included
+BALANCE_TOL = 1e-3                   # kernel against plain route, a band's live fraction
+
+
+def check_tool_rows(tool: str, rows: list, expect: dict) -> None:
+    """Each row's launches in one rep equal `expect[label]` (the wrappers'
+    counts), the profiler recorded every hand kernel launched in its
+    session, and its figures are finite and > 0: device and host ms, the
+    device kernels and their time; the hand kernels' time > 0 exactly
+    where the row launched one."""
+    assert [r["label"] for r in rows] == list(expect), (tool, [r["label"] for r in rows])
+    for r in rows:
+        assert r["launches"] == expect[r["label"]], (tool, r["label"], r["launches"],
+                                                     expect[r["label"]])
+        assert r["seen"] == r["launched"], (tool, r["label"], r["seen"], r["launched"])
+        for k in ("device_ms", "host_ms", "kernels", "kernel_ms"):
+            assert math.isfinite(r[k]) and r[k] > 0, (tool, r["label"], k, r[k])
+        assert math.isfinite(r["svgf_ms"]) and (r["svgf_ms"] > 0) == bool(r["launches"]), (
+            tool, r["label"], r["svgf_ms"], r["launches"])
+
+
+def check_balance() -> dict:
+    """measure_balance at its defaults on the kernel route (K5, one launch
+    for the primary rays and one a bounce) against the plain route on the
+    card: every band's live fraction within BALANCE_TOL, bounce by bounce."""
+    from svgf_tpu_torch.kernels.launch import LAUNCHES
+    from svgf_tpu_torch.scripts import measure_balance
+
+    def launched(before):
+        return {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]}
+
+    before = dict(LAUNCHES)
+    kern = measure_balance.main([], device=DEVICE)
+    assert launched(before) == {"intersect_dense": 1 + measure_balance.BOUNCES}, launched(before)
+    before = dict(LAUNCHES)
+    h, w, bands = kern["h"], kern["w"], kern["bands"]
+    arrays = measure_balance.scene_arrays(h, w, DEVICE)
+    plain = measure_balance.balance(
+        measure_balance.active_masks(arrays, h, w, measure_balance.BOUNCES, "off"), bands)
+    assert launched(before) == {}, launched(before)
+    err = max(abs(a - b) for pk, pp in zip(kern["per_bounce"], plain)
+              for a, b in zip(pk["live_frac_per_band"] + [pk["live_frac_mean"]],
+                              pp["live_frac_per_band"] + [pp["live_frac_mean"]]))
+    log(f"measure_balance ({kern['scene']}, {kern['bands']} bands, {kern['h']}x{kern['w']}): "
+        f"kernel route against plain, the largest difference of a band's live fraction {err}; "
+        f"worst imbalance {kern['worst_imbalance']} (interleaved "
+        f"{kern['worst_imbalance_interleaved']})")
+    assert err <= BALANCE_TOL, err
+    return {"max_frac_diff": err, "worst_imbalance": kern["worst_imbalance"],
+            "worst_imbalance_interleaved": kern["worst_imbalance_interleaved"]}
+
+
+def check_trace_sweep() -> dict:
+    """profile_trace over TOOL_CHUNKS at 1080p: each count's launches a
+    frame (K1, K2 and K5 once a G-buffer chunk and a bounce of a chunk), and
+    the first frame's radiance equal at every count (max error 0: lanes
+    keep their global ids); prints the lanes that differ, if any."""
+    from svgf_tpu_torch.scripts import profile_trace
+
+    sweep = profile_trace.main([str(c) for c in TOOL_CHUNKS], device=DEVICE)
+    expect = {f"trace_chunks={c}": {"temporal": 1, "moments": 1, "intersect_dense": 4 * c}
+              for c in TOOL_CHUNKS}
+    expect[f"gbuffer alone (chunks={TOOL_CHUNKS[-1]})"] = {"intersect_dense": TOOL_CHUNKS[-1]}
+    check_tool_rows("profile_trace", sweep.rows, expect)
+    ref = sweep.radiance[TOOL_CHUNKS[-1]]
+    errs = {}
+    for c, rad in sweep.radiance.items():
+        d = (rad - ref).abs().amax(-1).reshape(-1)
+        errs[c] = float(d.max())
+        if errs[c] != 0:
+            lanes = torch.nonzero(d).reshape(-1)
+            log(f"trace_chunks={c}: radiance max error {errs[c]} against {TOOL_CHUNKS[-1]} "
+                f"chunk(s) on {lanes.numel()} lanes, the first {lanes[:20].tolist()}")
+    log(f"profile_trace radiance against {TOOL_CHUNKS[-1]} chunk(s), max error: {errs}")
+    assert all(e == 0 for e in errs.values()), errs
+    return {r["label"]: {k: r[k] for k in ("device_ms", "host_ms", "kernels")}
+            for r in sweep.rows}
+
+
+def check_measuring_tools(smi: str) -> dict:
+    """Phase 17: each measuring tool's main on the card at its defaults,
+    the launch counts set to 0 just before the phase and read just after:
+    measure_balance against the plain route (check_balance), profile_trace
+    (check_trace_sweep), profile_trace_parts, profile_stages,
+    profile_filter and profile_moments, each row's launches and figures
+    held by check_tool_rows."""
+    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
+    from svgf_tpu_torch.scripts import (
+        profile_filter, profile_moments, profile_stages, profile_trace_parts,
+    )
+
+    log(f"phase 17 on {smi}")
+    reset_launches()
+    res = {"balance": check_balance(), "trace": check_trace_sweep()}
+
+    parts = profile_trace_parts.main([], device=DEVICE)
+    K = 24
+    k5 = {"intersect_dense": K}
+    check_tool_rows("profile_trace_parts", parts, {
+        "intersect_scene (pallas)": k5, "intersect_scene (xla dense)": {},
+        "intersect_scene (all-inactive)": k5, "_shading_point": {}, "sample_lights": {},
+        "sample_lights_pdf_from_hit": {}, "bsdf sample+eval+pdf": {},
+        "12x rng uniform draws": {}, "one full MIS bounce": k5})
+    res["parts"] = {r["label"]: {k: r[k] for k in ("device_ms", "host_ms", "kernels")}
+                    for r in parts}
+
+    n = profile_stages.K
+    stages = profile_stages.main([], device=DEVICE)
+    check_tool_rows("profile_stages", stages, {
+        "temporal (XLA, packed gather)": {}, "gather alone (12ch f32)": {},
+        "moments 7x7 (XLA)": {}, "atrous step=1 (XLA)": {}, "taa (XLA)": {},
+        "temporal (Pallas)": {"temporal": n}, "taa (Pallas)": {"taa": n},
+        "moments 7x7 (Pallas)": {"moments": n},
+        "atrous step=1 (Pallas)": {"atrous_iteration": n},
+        "atrous step=16 (Pallas)": {"atrous_iteration": n},
+        "atrous chain x5 (Pallas)": {"atrous": 5 * n}})
+
+    n = profile_filter.K
+    filt = profile_filter.main([], device=DEVICE)
+    check_tool_rows("profile_filter", filt, {
+        "temporal kernel (pre-packed)": {"temporal": n}, "moments kernel": {"moments": n},
+        **{f"atrous chain steps={s}": {"atrous": s * n} for s in (1, 2, 5)},
+        "taa kernel": {"taa": n},
+        "filter_chain": {"temporal": n, "moments": n, "atrous": 5 * n, "taa": n}})
+    res["filter"] = {r["label"]: {k: r[k] for k in ("device_ms", "host_ms", "svgf_ms")}
+                     for r in filt}
+
+    n = profile_moments.K
+    mom = profile_moments.main([], device=DEVICE)
+    check_tool_rows("profile_moments", mom,
+                    {label: {"moments": n} for label in profile_moments.history_cases(8, 128)})
+    res["moments"] = {r["label"]: {k: r[k] for k in ("device_ms", "svgf_ms")} for r in mom}
+
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    log(f"phase 17 launches: {launches}")
+    assert all(launches.get(k) for k in ("temporal", "moments", "atrous", "taa",
+                                         "intersect_dense", "atrous_iteration")), launches
+    log("phase 17: " + json.dumps(res))
+    return res
+
+
 def compare_times() -> dict:
     """The times the redesigns of K2/K8, K6 and K4/K10 should move, measured
     on the tree of the port that is imported, with only the wrappers'
@@ -3091,6 +3214,7 @@ def main() -> int:
     train_launches = phase("gradients and train steps", check_gradients, arrays)
     phase("native builder, per-shape walk and orbit", check_native_and_orbit, stress, arrays,
           numpy_flatten_s, host_build_s)
+    phase("measuring tools", check_measuring_tools, smi)
     # last: it moves the terrain's light
     phase("scene I/O and edits", check_scene_io_and_edits, stress, arrays)
 

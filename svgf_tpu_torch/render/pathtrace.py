@@ -152,6 +152,20 @@ def _volume_scatter(scene, state: PathState, dist, rng: RngStream, intersect_mod
     return pos, incoming, w, broke
 
 
+# Optional measurement probe (svgf_tpu/render/pathtrace.py:231-240): when it
+# is a list, pathtrace appends each bounce's active mask after Russian
+# roulette and the dead-lane update, one (R,) bool tensor a bounce, the
+# data of scripts/measure_balance.py. None in production, where it costs
+# one `is not None` test a bounce. pathtrace_chunked appends chunk by chunk
+# (each chunk's bounces in turn, masks of the chunk's lanes).
+_ACTIVE_PROBE: list | None = None
+
+
+def set_active_probe(lst) -> None:
+    global _ACTIVE_PROBE
+    _ACTIVE_PROBE = lst
+
+
 def pathtrace(scene, ro, rd, key, lane_ids, bounces: int = 3, clamp: float = 10.0,
               mode: SamplingMode = SamplingMode.MIS, first_hit: Hit | None = None,
               intersect_mode: str = "off"):
@@ -204,6 +218,9 @@ def pathtrace(scene, ro, rd, key, lane_ids, bounces: int = 3, clamp: float = 10.
             )
         dead = (state.weight.amax(-1) <= 0.0) | ~torch.isfinite(state.weight).all(-1)
         state = state._replace(active=state.active & ~dead)
+        if _ACTIVE_PROBE is not None:
+            # a fresh tensor each bounce, which no later op writes into
+            _ACTIVE_PROBE.append(state.active)
         if b + 1 < bounces:
             if next_hit is not None:
                 # the MIS bounce traced every active lane's next ray already
@@ -262,7 +279,9 @@ def pathtrace_chunked(scene, ro, rd, key, bounces: int = 3, clamp: float = 10.0,
     """Run the wavefront in `num_chunks` sequential lane chunks: peak memory
     scales with the live lane count. Lanes keep their global ids, so the
     result equals the unchunked one. Padding lanes repeat the last ray and
-    count in rays_traced, as in svgf_tpu.
+    count in rays_traced, as in svgf_tpu. The active probe
+    (`set_active_probe`) receives chunk 0's masks of every bounce, then
+    chunk 1's, and so on, each over its chunk's lanes, padding included.
 
     checkpoint: each chunk runs under torch.utils.checkpoint, so autograd
     keeps a chunk's inputs and traces it again in the backward pass (the

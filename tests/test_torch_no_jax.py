@@ -70,6 +70,9 @@ from svgf_tpu_torch.accel import native
 from svgf_tpu_torch.ops.intersect import intersect_brute_force, intersect_scene
 from svgf_tpu_torch.scenes.stress import stress_scene
 from svgf_tpu_torch.scripts import render_orbit
+# the measuring tools need no JAX either, nor svgf_tpu's scripts or bench.py
+from svgf_tpu_torch.scripts import measure_balance, profile_trace_parts
+assert measure_balance.main(["2", "8", "8"], device="cpu")["scene"] == "cornell"
 os.environ["SVGF_NATIVE"] = "1"
 assert native.available()
 big = stress_scene(n=96).flatten(device="cpu")
@@ -81,7 +84,8 @@ with tempfile.TemporaryDirectory() as d:
     run = render_orbit.main(["--device", "cpu", "--width", "16", "--height", "16", "--frames", "2",
                              "--bounces", "1", "--steps", "1", "--out", d])
     assert len(run.pngs) == 2 and os.path.exists(os.path.join(d, "ckpt.npz"))
-assert not any(m in ("jax", "svgf_tpu") or m.startswith(("jax.", "jaxlib", "svgf_tpu."))
+assert not any(m in ("jax", "svgf_tpu", "bench", "scripts")
+               or m.startswith(("jax.", "jaxlib", "svgf_tpu.", "scripts."))
                for m in sys.modules if sys.modules[m] is not None)
 print("rendered without jax")
 """
@@ -94,8 +98,10 @@ def test_renders_a_frame_without_jax():
     assert "rendered without jax" in proc.stdout
 
 
-# an import statement of jax or of svgf_tpu (svgf_tpu_torch is the port)
-_FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax|jaxlib|svgf_tpu)(?![\w])", re.MULTILINE)
+# an import statement of jax, of svgf_tpu (svgf_tpu_torch is the port), of
+# the repository's bench.py or of its scripts/ (the port keeps its own copies)
+_FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax|jaxlib|svgf_tpu|bench|scripts)(?![\w])",
+                        re.MULTILINE)
 
 
 def test_no_file_imports_jax():
@@ -115,5 +121,12 @@ def test_no_file_imports_svgf_tpu():
     for line, bad in (("from svgf_tpu.config import X", True), ("import svgf_tpu", True),
                       ("    import svgf_tpu.accel.bvh as b", True), ("import jax.numpy", True),
                       ("from svgf_tpu_torch.ops import x", False), ("import svgf_tpu_torch", False),
-                      ("# see svgf_tpu.accel", False)):
+                      ("# see svgf_tpu.accel", False),
+                      ("from bench import make_bench_inputs", True), ("import bench", True),
+                      ("    from bench import timed  # noqa", True),
+                      ("from scripts.measure_balance import main", True),
+                      ("import scripts.profile_trace", True), ("from scripts import x", True),
+                      ("from svgf_tpu_torch.scripts import timing", False),
+                      ("from svgf_tpu_torch.scripts.profile_filter import x", False),
+                      ("import benchmark_tools", False), ("# see bench.py:70", False)):
         assert bool(_FORBIDDEN.search(line)) is bad, line

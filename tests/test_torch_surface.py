@@ -153,9 +153,6 @@ EXCEPTIONS = {
         "converts to the planar layout, which the port does not have", None),
     "svgf_tpu.render.types.TemporalState.initial_planar": (
         "the planar layout's initial state, which the port does not have", None),
-    "svgf_tpu.render.pathtrace.set_active_probe": (
-        "the hook of svgf_tpu's TPU profiling scripts; chip_smoke.py and torch.profiler measure "
-        "the port", None),
     "svgf_tpu.kernels.pack_prev_planes": (
         "packs fp16 pairs into f32 planes (Mosaic has no f16 VMEM type); the port stores fp16",
         None),
