@@ -175,6 +175,23 @@ Phases, each failing loudly (no phase catches an exception):
      plain sweep), the profiler's record of every launch of the row's
      session, every time finite and > 0; prints each tool's rows and one
      JSON line of them beside the card's name and power limit.
+ 18. the gradient-debugging tools (svgf_tpu_torch/scripts/grad_bisect.py,
+     grad_bisect2.py, grad_fd_explore.py; runs before 13): (a) each main on
+     the card at its own size (24x16, 24x16, 40x32) against the same main
+     on the CPU in this process: row names and finite flags equal, each
+     cam_frame gradient within parallel/checks.py GRAD_RTOL of the largest
+     (2e-2 for the rows the CPU tests show a rounding decides: hit_uv and
+     the two frame rows), the FD rows' autograd values within 2e-3 and
+     every relative FD error below 0.05, the interior mask equal, the
+     primary rays' K5 winners against the CPU's plain sweep with the
+     lanes that differ printed; (b) at 1920x1080
+     grad_bisect's four K5 rows and grad_bisect2's 19 stages through K5
+     against the same losses on the plain dense sweep on the card: finite
+     flags equal, the gradients within GRAD_RTOL (2e-2 for the rows after
+     the first shadow intersect only where the shadow or BSDF-sample
+     winners differ, those lanes printed). Every row's K5 launches held to
+     the tool's K5_CALLS; each row prints its forward + backward ms (CUDA
+     events) and peak memory.
 Each kernel-alone time, device-kernel count and profiled frame comes from
 svgf_tpu_torch/scripts/timing.py profile_calls (a warm-up call and a
 marker kernel a session, sessions repeated until the profiler recorded
@@ -2340,31 +2357,6 @@ def check_cornell_train_step() -> dict:
                         "kernels": kernels, "repeat_max_grad_diff": max_grad_diff(grads, grads2)}}
 
 
-def interior_mask(arrays, h, w):
-    """tests/test_camera_grad.py interior_mask: pixels at least 2 px from an
-    instance or depth edge at the base camera, (h, w, 1)."""
-    from svgf_tpu_torch.render.gbuffer import raster_gbuffer
-
-    with torch.no_grad():
-        g0 = raster_gbuffer(arrays, 0, h, w, mode="on")
-    inst, depth = g0.instance.cpu().numpy(), g0.depth.cpu().numpy()
-    edge = np.zeros((h, w), bool)
-    edge[:, 1:] |= inst[:, 1:] != inst[:, :-1]
-    edge[:, :-1] |= inst[:, 1:] != inst[:, :-1]
-    edge[1:, :] |= inst[1:, :] != inst[:-1, :]
-    edge[:-1, :] |= inst[1:, :] != inst[:-1, :]
-    edge[:, 1:] |= np.abs(depth[:, 1:] - depth[:, :-1]) > 0.1
-    edge[1:, :] |= np.abs(depth[1:, :] - depth[:-1, :]) > 0.1
-    for _ in range(2):
-        e2 = edge.copy()
-        e2[1:, :] |= edge[:-1, :]
-        e2[:-1, :] |= edge[1:, :]
-        e2[:, 1:] |= edge[:, :-1]
-        e2[:, :-1] |= edge[:, 1:]
-        edge = e2
-    return torch.as_tensor(~edge, dtype=torch.float32, device=DEVICE)[..., None]
-
-
 def fd_check(label, loss, x, idx, eps: float, analytic: float, bar: float, floor: float):
     """Central difference of loss(x) at x[idx] against `analytic`."""
     with torch.no_grad():
@@ -2404,8 +2396,10 @@ def camera_fd(label, arrays, config, comp: int, held: bool) -> float:
     one-sided differences disagree (a jump on one side) and the check
     holds the result to the bar 0.15; without, it only logs the interior
     mask's numbers."""
+    from svgf_tpu_torch.scripts.grad_fd_explore import interior_mask
+
     h, w, eps = config.height, config.width, 1e-3
-    interior = interior_mask(arrays, h, w)
+    interior = interior_mask(arrays, h, w, "on")
     with torch.no_grad():
         shifted = []
         for sign in (1.0, -1.0):
@@ -3089,6 +3083,203 @@ def check_measuring_tools(smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the gradient-debugging tools (svgf_tpu_torch/scripts/grad_*) on the card
+# ---------------------------------------------------------------------------
+
+# a row that a tie explains: tests/test_torch_grad_tools.py's hit_uv bar
+GRAD_TIE_RTOL = 2e-2
+# the rows that its tests show a rounding decides at the tools' own sizes:
+# hit_uv (four primary rays on a shared edge, test_hit_uv_tie_lanes) and the
+# frame rows (a 1-ulp camera move changes their gradients by ~6e-4 of the
+# largest on the CPU alone, test_frame_rows_follow_a_rounding)
+GRAD_TIE_ROWS = ("hit_uv", "full frame 1", "full frame 2 (temporal)")
+FD_AN_RTOL = 2e-3
+FD_REL_BAR = 0.05
+SHOWN_LANES = 20
+
+
+def hold_grad_rows(label, got: list, want: list, k5_calls: dict, loose=()) -> dict:
+    """The card's gradient rows (got) against `want`: names and finite
+    flags equal; each cam_frame gradient within bar x (the largest finite
+    |g| of want) + GRAD_ATOL, the bar GRAD_RTOL, or GRAD_TIE_RTOL for the
+    rows in `loose`; each row's K5 launches k5_calls[name]. Logs each
+    row's forward + backward ms and peak memory."""
+    from svgf_tpu_torch.parallel.checks import GRAD_ATOL, GRAD_RTOL
+
+    assert [r.name for r in got] == [r.name for r in want], (label, [r.name for r in got])
+    out = {}
+    for g, w in zip(got, want):
+        ok = np.isfinite(w.grad)
+        assert g.finite == w.finite and np.array_equal(np.isfinite(g.grad), ok), (label, g.name)
+        scale = float(np.abs(w.grad[ok]).max()) if ok.any() else 0.0
+        err = float(np.abs(g.grad - w.grad)[ok].max()) if ok.any() else 0.0
+        bar = GRAD_TIE_RTOL if g.name in loose else GRAD_RTOL
+        k5 = g.launches.get("intersect_dense", 0)
+        log(f"  {label}, {g.name}: finite {g.finite}, |g|max {g.gmax:.6g} against {w.gmax:.6g}, "
+            f"largest difference {err:.3e} ({err / max(scale, 1e-30):.2e} of the largest, bar "
+            f"{bar}), {g.ms:.3f} ms forward + backward, peak {g.peak_mib:.1f} MiB, K5 {k5}")
+        assert err <= bar * scale + GRAD_ATOL, (label, g.name, err, scale, bar)
+        assert g.launches == ({"intersect_dense": k5_calls[g.name]} if k5_calls[g.name] else {}), (
+            label, g.name, g.launches)
+        out[g.name] = {"ms": g.ms, "peak_mib": g.peak_mib, "k5": k5, "gmax": g.gmax,
+                       "rel_err": err / max(scale, 1e-30)}
+    return out
+
+
+def winner_lanes(label, got, want, t0, active=None) -> int:
+    """compare_hits of two Hits on the same rays, and the lanes whose winner
+    differs printed (the first SHOWN_LANES: index, both triangles and both
+    t). Returns how many differ."""
+    compare_hits(label, got, want, t0, active)
+    sel = torch.ones_like(t0, dtype=torch.bool) if active is None else active
+    hit, hit_got = want.dist < t0, got.dist < t0
+    differ = sel & ((hit != hit_got) | (hit & (got.prim != want.prim)))
+    lanes = torch.nonzero(differ).reshape(-1)
+    for i in lanes[:SHOWN_LANES].tolist():
+        log(f"    lane {i}: triangle {int(got.prim[i])} at t {float(got.dist[i]):.9g} against "
+            f"{int(want.prim[i])} at t {float(want.dist[i]):.9g}")
+    return lanes.numel()
+
+
+@contextlib.contextmanager
+def recording_k5(calls: list):
+    """While the block runs, each call of K5's wrapper appends its rays and
+    keywords to `calls`."""
+    from svgf_tpu_torch.kernels import intersect as KI
+
+    fn = KI.intersect_dense_kernel
+
+    def record(scene, ro, rd, **kw):
+        calls.append((ro.detach(), rd.detach(), kw))
+        return fn(scene, ro, rd, **kw)
+
+    KI.intersect_dense_kernel = record
+    try:
+        yield
+    finally:
+        KI.intersect_dense_kernel = fn
+
+
+def grad_tools_own_sizes() -> dict:
+    """(a) Each tool's main on the card at its own size against the same
+    main on the CPU in this process. The primary winners of the card's K5
+    and of the CPU's plain sweep are compared on each side's own rays (the
+    lanes that differ printed); GRAD_TIE_ROWS take GRAD_TIE_RTOL."""
+    from svgf_tpu_torch.kernels.launch import LAUNCHES
+    from svgf_tpu_torch.ops.intersect import intersect_scene, start_dist
+    from svgf_tpu_torch.render.gbuffer import camera_rays
+    from svgf_tpu_torch.scripts import grad_bisect, grad_bisect2, grad_fd_explore
+
+    res = {}
+    for mod in (grad_bisect, grad_bisect2):
+        name = mod.__name__.rsplit(".", 1)[-1]
+        card, cpu = mod.main([], device=DEVICE), mod.main([], device="cpu")
+        hits = []
+        for dev, mode in ((DEVICE, "on"), ("cpu", "off")):
+            a = grad_bisect.cornell_arrays(mod.H, mod.W, dev)
+            with torch.no_grad():
+                ro, rd = camera_rays(a.cam_frame[0], a.cam_proj[0], mod.H, mod.W)
+                hits.append(intersect_scene(a, ro, rd, mode))
+        cpu_hit = type(hits[1])(*(x.to(DEVICE) for x in hits[1]))
+        ties = winner_lanes(f"{name} {mod.W}x{mod.H} primary rays, K5 on the card against the "
+                            "CPU's plain sweep", hits[0], cpu_hit,
+                            start_dist(None, mod.H * mod.W, DEVICE))
+        res[name] = {"primary_lanes_differ": ties, "rows": hold_grad_rows(
+            f"{name} {mod.W}x{mod.H}, card against CPU", card, cpu, mod.K5_CALLS,
+            GRAD_TIE_ROWS)}
+
+    before = LAUNCHES["intersect_dense"]
+    card = grad_fd_explore.main([], device=DEVICE)
+    k5 = LAUNCHES["intersect_dense"] - before
+    cpu = grad_fd_explore.main([], device="cpu")
+    h, w = grad_fd_explore.H, grad_fd_explore.W
+    masks = [grad_fd_explore.interior_mask(grad_bisect.cornell_arrays(h, w, dev), h, w, mode).cpu()
+             for dev, mode in ((DEVICE, "on"), ("cpu", "off"))]
+    log(f"  grad_fd_explore {w}x{h}: interior pixels {int(masks[0].sum())} on the card, "
+        f"{int(masks[1].sum())} on the CPU; K5 {k5}")
+    assert torch.equal(masks[0], masks[1])
+    assert k5 == 1 + grad_fd_explore.EVALUATIONS * sum(grad_fd_explore.K5_CALLS.values()), k5
+    for g, c in zip(card, cpu):
+        assert (g.name, g.comp, g.eps) == (c.name, c.comp, c.eps), (g, c)
+        log(f"  grad_fd_explore {g.name} comp={g.comp} eps={g.eps:g}: fd {g.fd:+.6g} / "
+            f"{c.fd:+.6g}, an {g.an:+.6g} / {c.an:+.6g}, rel {g.rel:.4f} / {c.rel:.4f} (card / CPU)")
+        assert abs(g.an - c.an) <= FD_AN_RTOL * abs(c.an), (g, c)
+        assert g.rel < FD_REL_BAR and c.rel < FD_REL_BAR, (g, c)
+    res["grad_fd_explore"] = {"interior": int(masks[0].sum()), "k5": k5,
+                              "rows": [g._asdict() for g in card]}
+    return res
+
+
+def grad_tools_1080p() -> dict:
+    """(b) grad_bisect's K5 rows and grad_bisect2's 19 stages at 1920x1080
+    through K5 against the same losses on the plain dense sweep on the
+    card. The winners of the three intersects of the last stage (primary,
+    shadow, BSDF sample) are compared on K5's rays (the lanes that differ
+    printed). Rows before the first shadow intersect are held at
+    GRAD_RTOL; a later row (and the trace rows, whose bounce makes the same
+    shadow and BSDF-sample intersect) takes GRAD_TIE_RTOL only where those
+    winners differ."""
+    from svgf_tpu_torch.kernels import intersect as KI
+    from svgf_tpu_torch.ops.intersect import intersect_dense, start_dist
+    from svgf_tpu_torch.scripts import grad_bisect, grad_bisect2
+
+    arrays = grad_bisect.cornell_arrays(H, W, DEVICE)
+    config = grad_bisect.grad_config(H, W)
+    k5_rows = [n for n, c in grad_bisect.K5_CALLS.items() if c]
+
+    def named(mode):
+        losses = grad_bisect.losses(arrays, config, H, W, mode)
+        out = {n: losses[n] for n in k5_rows}
+        out.update({s: (lambda cf, s=s: grad_bisect2.stage(arrays, cf, s, H, W, mode))
+                    for s in grad_bisect2.STAGES})
+        return out
+
+    calls = []
+    with torch.no_grad(), recording_k5(calls):
+        grad_bisect2.stage(arrays, arrays.cam_frame, grad_bisect2.STAGES[-1], H, W, "on")
+    assert len(calls) == 3, len(calls)
+    differ = {}
+    for label, (ro, rd, kw) in zip(("primary", "shadow", "BSDF sample"), calls):
+        active = kw.get("active")
+        differ[label] = winner_lanes(
+            f"grad_bisect2 {W}x{H} {label} rays, K5 against the plain sweep",
+            KI.intersect_dense_kernel(arrays, ro, rd, active=active),
+            intersect_dense(arrays, ro, rd, active=active), start_dist(None, ro.shape[0], DEVICE),
+            active)
+    later = grad_bisect2.STAGES[grad_bisect2.STAGES.index("lpdf_l"):]
+    loose = (*later, "trace (no hybrid)", "trace (hybrid primary)") if (
+        differ["shadow"] or differ["BSDF sample"]) else ()
+    log(f"  {W}x{H}: winners that differ {differ}; rows held at {GRAD_TIE_RTOL}: {list(loose)}")
+    on = grad_bisect.bisect(named("on"), arrays.cam_frame)
+    off = grad_bisect.bisect(named("off"), arrays.cam_frame)
+    plain = {}
+    for r in off:
+        log(f"  {W}x{H} plain sweep, {r.name}: {r.ms:.3f} ms forward + backward, peak "
+            f"{r.peak_mib:.1f} MiB")
+        assert r.launches == {}, (r.name, r.launches)
+        plain[r.name] = {"ms": r.ms, "peak_mib": r.peak_mib}
+    k5_calls = {**grad_bisect.K5_CALLS, **grad_bisect2.K5_CALLS}
+    return {"winners_differ": differ, "plain": plain,
+            "K5": hold_grad_rows(f"{W}x{H}, K5 against the plain sweep", on, off, k5_calls, loose)}
+
+
+def check_gradient_tools(smi: str) -> dict:
+    """Phase 18: the gradient-debugging tools, (a) at their own sizes
+    against their CPU runs and (b) at 1080p through K5 against the plain
+    sweep, the launch counts set to 0 just before and read just after."""
+    from svgf_tpu_torch.kernels.launch import LAUNCHES, reset_launches
+
+    log(f"phase 18 on {smi}")
+    reset_launches()
+    res = {"own sizes": grad_tools_own_sizes(), "1080p": grad_tools_1080p()}
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    log(f"phase 18 launches: {launches}")
+    assert set(launches) == {"intersect_dense"}, launches
+    log("phase 18: " + json.dumps(res))
+    return res
+
+
 def compare_times() -> dict:
     """The times the redesigns of K2/K8, K6 and K4/K10 should move, measured
     on the tree of the port that is imported, with only the wrappers'
@@ -3215,6 +3406,7 @@ def main() -> int:
     phase("native builder, per-shape walk and orbit", check_native_and_orbit, stress, arrays,
           numpy_flatten_s, host_build_s)
     phase("measuring tools", check_measuring_tools, smi)
+    phase("gradient tools", check_gradient_tools, smi)
     # last: it moves the terrain's light
     phase("scene I/O and edits", check_scene_io_and_edits, stress, arrays)
 

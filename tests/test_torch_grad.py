@@ -53,6 +53,7 @@ from svgf_tpu_torch.render.pathtrace import pathtrace_chunked
 from svgf_tpu_torch.render.pipeline import filter_chain, render_frame
 from svgf_tpu_torch.render.types import GBuffer, TemporalState
 from svgf_tpu_torch.scenes.cornell import cornell_box
+from svgf_tpu_torch.scripts.grad_fd_explore import interior_mask
 
 W, H = 40, 32
 N_ORBIT = 4
@@ -417,29 +418,6 @@ def test_trace_vjp_matches_jax(trace_vjps, name):
 # ---------------------------------------------------------------------------
 
 
-def _interior_mask(arrays):
-    """tests/test_camera_grad.py interior_mask: pixels >= 2 px from an
-    instance or depth edge at the base camera."""
-    with torch.no_grad():
-        g0 = raster_gbuffer(arrays, 0, H, W)
-    inst, depth = g0.instance.numpy(), g0.depth.numpy()
-    edge = np.zeros((H, W), bool)
-    edge[:, 1:] |= inst[:, 1:] != inst[:, :-1]
-    edge[:, :-1] |= inst[:, 1:] != inst[:, :-1]
-    edge[1:, :] |= inst[1:, :] != inst[:-1, :]
-    edge[:-1, :] |= inst[1:, :] != inst[:-1, :]
-    edge[:, 1:] |= np.abs(depth[:, 1:] - depth[:, :-1]) > 0.1
-    edge[1:, :] |= np.abs(depth[1:, :] - depth[:-1, :]) > 0.1
-    for _ in range(2):
-        e2 = edge.copy()
-        e2[1:, :] |= edge[:-1, :]
-        e2[:-1, :] |= edge[1:, :]
-        e2[:, 1:] |= edge[:, :-1]
-        e2[:, :-1] |= edge[:, 1:]
-        edge = e2
-    return torch.as_tensor(~edge, dtype=torch.float32)[..., None]
-
-
 def _fd_rel(fd: float, an: float, floor: float) -> float:
     return abs(fd - an) / max(abs(fd), abs(an), floor)
 
@@ -450,7 +428,7 @@ def test_camera_gradient_finite_difference(comp):
     the interior-masked loss of one frame, x and z translation, step 1e-3,
     bar 0.15."""
     config, arrays = _torch_config(1), _torch_arrays()
-    mask = _interior_mask(arrays)
+    mask = interior_mask(arrays, H, W, "off")
     assert float(mask.sum()) > 30
 
     def loss(cam_frame):

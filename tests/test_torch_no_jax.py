@@ -70,8 +70,9 @@ from svgf_tpu_torch.accel import native
 from svgf_tpu_torch.ops.intersect import intersect_brute_force, intersect_scene
 from svgf_tpu_torch.scenes.stress import stress_scene
 from svgf_tpu_torch.scripts import render_orbit
-# the measuring tools need no JAX either, nor svgf_tpu's scripts or bench.py
-from svgf_tpu_torch.scripts import measure_balance, profile_trace_parts
+# the measuring and gradient tools need no JAX either, nor svgf_tpu's scripts or bench.py
+from svgf_tpu_torch.scripts import (grad_bisect, grad_bisect2, grad_fd_explore,
+                                    measure_balance, profile_trace_parts)
 assert measure_balance.main(["2", "8", "8"], device="cpu")["scene"] == "cornell"
 os.environ["SVGF_NATIVE"] = "1"
 assert native.available()

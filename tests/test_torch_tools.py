@@ -257,9 +257,6 @@ NOT_PORTED = {
     "profile_planar.py": "times the planar padded layout, not ported by decision",
     "probe_moments_floor.py": "times the planar padded layout's moments floor, not ported; "
                               "profile_moments reports the zero-fallback floor as case (a)",
-    "grad_bisect.py": "CPU gradient debugging; the next slice (ROADMAP Q1)",
-    "grad_bisect2.py": "CPU gradient debugging; the next slice (ROADMAP Q1)",
-    "grad_fd_explore.py": "CPU gradient debugging; the next slice (ROADMAP Q1)",
 }
 
 
@@ -276,7 +273,6 @@ def test_scripts_have_counterparts(script):
 
 def test_not_ported_table_is_pinned():
     assert sorted(NOT_PORTED) == [
-        "bench_large.py", "bench_sharding.py", "gallery_match.py", "grad_bisect.py",
-        "grad_bisect2.py", "grad_fd_explore.py", "make_goldens.py", "probe_moments_floor.py",
-        "profile_planar.py"]
+        "bench_large.py", "bench_sharding.py", "gallery_match.py", "make_goldens.py",
+        "probe_moments_floor.py", "profile_planar.py"]
     assert all((ROOT / "scripts" / s).exists() for s in NOT_PORTED)
