@@ -1334,6 +1334,8 @@ def step_frames(r, orbit, frames: int = FRAMES):
     """`frames` frames of r.step(), the camera set by orbit(f) (None keeps
     it) before frame f. Returns (the last FrameOutputs, per-frame stage
     milliseconds)."""
+    from svgf_tpu_torch.render import spans
+
     stages = []
     out = None
     for f in range(frames):
@@ -1343,7 +1345,7 @@ def step_frames(r, orbit, frames: int = FRAMES):
         torch.cuda.synchronize()
         out = r.step(events)
         torch.cuda.synchronize()
-        names = list(events)
+        names = [n for n in spans.STAGES if n in events]   # the parts' marks left out
         ms = {b: events[a].elapsed_time(events[b]) for a, b in zip(names, names[1:])}
         ms["frame"] = events[names[0]].elapsed_time(events[names[-1]])
         stages.append(ms)

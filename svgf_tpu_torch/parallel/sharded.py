@@ -56,10 +56,10 @@ from svgf_tpu_torch.ops.sampling import RngStream
 from svgf_tpu_torch.parallel.collectives import all_to_all, gather_tiles
 from svgf_tpu_torch.parallel.distributed import RowMesh, make_row_mesh
 from svgf_tpu_torch.parallel.halo import crop_halo, with_row_halo, with_row_halos
-from svgf_tpu_torch.render import svgf
+from svgf_tpu_torch.render import spans, svgf
 from svgf_tpu_torch.render.gbuffer import camera_rays, gbuffer_first_hit, raster_gbuffer
 from svgf_tpu_torch.render.pathtrace import pathtrace_chunked
-from svgf_tpu_torch.render.pipeline import STATE_DTYPES, _mark
+from svgf_tpu_torch.render.pipeline import STATE_DTYPES
 from svgf_tpu_torch.render.svgf import BOUND_Y
 from svgf_tpu_torch.render.types import FrameOutputs, GBuffer, TemporalState
 
@@ -182,7 +182,7 @@ def _frame_body(scene, state: TemporalState, config: RenderConfig, mesh: RowMesh
         raise ValueError(f"bands of {hs} rows: the kernel route needs at least {BOUND_Y}")
     if state.color.shape[:2] != (hs, w):
         raise ValueError(f"state band {tuple(state.color.shape[:2])}, expected {(hs, w)}")
-    _mark(events, "start")
+    spans.mark(events, "start")
 
     gbuf = raster_gbuffer(scene, cam, hs, w, mode=isect, row0=row0, h_total=h_total)
     # the depth derivative at the band's last row needs the next band's
@@ -192,7 +192,7 @@ def _frame_body(scene, state: TemporalState, config: RenderConfig, mesh: RowMesh
     dzy = abs_(ze[1:] - ze[:-1])
     dzx = abs_(torch.diff(z, dim=1, append=z[:, -1:]))
     gbuf = gbuf._replace(depth_deriv=torch.where(z > 0.0, torch.maximum(dzx, dzy), 0.0))
-    _mark(events, "gbuffer")
+    spans.mark(events, "gbuffer")
 
     # the random draws hash GLOBAL pixel ids: each band draws what the
     # whole frame draws for its pixels
@@ -223,7 +223,7 @@ def _frame_body(scene, state: TemporalState, config: RenderConfig, mesh: RowMesh
             (sample,) = a2a_inv([sample])
         radiance = radiance + sample / config.tracing.batch
     radiance = radiance.reshape(hs, w, 3)
-    _mark(events, "trace")
+    spans.mark(events, "trace")
 
     sv = config.svgf
     thresholds = (sv.depth_threshold, sv.normal_threshold, sv.history_length)
@@ -244,11 +244,11 @@ def _frame_body(scene, state: TemporalState, config: RenderConfig, mesh: RowMesh
         tres = svgf.temporal_filter(
             radiance, full[0], gbuf, _fields_gbuf(depth=full[3], normal=full[4], instance=full[5]),
             full[1], full[2], *thresholds, row0=row0)
-    _mark(events, "temporal")
+    spans.mark(events, "temporal")
 
     moments_out = _moments_filter_band(tres.color, tres.moments, gbuf, tres.history_len,
                                        config, mesh, kernels)
-    _mark(events, "moments")
+    spans.mark(events, "moments")
     out = moments_out
     feedback = tres.color if sv.spatial_filter_steps == 0 else None
     for i in range(sv.spatial_filter_steps):
@@ -256,14 +256,14 @@ def _frame_body(scene, state: TemporalState, config: RenderConfig, mesh: RowMesh
         if i == 0:
             feedback = out
     atrous_out = out
-    _mark(events, "atrous")
+    spans.mark(events, "atrous")
 
     if sv.enable_taa:
         final = _taa_band(atrous_out, state.taa_history, mesh, kernels)
     else:
         rgb = clip(atrous_out[..., :3], 0.0, 1.0)
         final = torch.cat([to_srgb(rgb), torch.ones_like(rgb[..., :1])], dim=-1)
-    _mark(events, "taa")
+    spans.mark(events, "taa")
 
     new_gbuf = gbuf.to_dtype(sdtype)
     new_state = TemporalState(
@@ -276,7 +276,7 @@ def _frame_body(scene, state: TemporalState, config: RenderConfig, mesh: RowMesh
         moments_filtered=moments_out, atrous=atrous_out, final=final[..., :3],
         gbuffer=new_gbuf,
     )
-    _mark(events, "state")
+    spans.mark(events, "state")
     return outputs, new_state
 
 

@@ -52,10 +52,10 @@ from svgf_tpu_torch.parallel.halo import (
     with_tile_halos,
 )
 from svgf_tpu_torch.parallel.sharded import _fields_gbuf, make_sharded_step, train_step_of
-from svgf_tpu_torch.render import svgf
+from svgf_tpu_torch.render import spans, svgf
 from svgf_tpu_torch.render.gbuffer import camera_rays, gbuffer_first_hit, raster_gbuffer
 from svgf_tpu_torch.render.pathtrace import pathtrace_chunked
-from svgf_tpu_torch.render.pipeline import STATE_DTYPES, _mark
+from svgf_tpu_torch.render.pipeline import STATE_DTYPES
 from svgf_tpu_torch.render.types import FrameOutputs, GBuffer, TemporalState
 
 __all__ = ["make_tile_mesh", "make_mesh_from_config", "make_step_from_config",
@@ -136,13 +136,13 @@ def _tiled_frame_body(scene, state: TemporalState, config: RenderConfig, mesh: T
     isect = config.use_pallas_intersect or config.use_pallas
     dev = scene.device
     sv = config.svgf
-    _mark(events, "start")
+    spans.mark(events, "start")
 
     gbuf = raster_gbuffer(scene, cam, hs, ws, mode=isect, row0=row0, h_total=h_total,
                           col0=col0, w_total=w_total)
     z = gbuf.depth
     gbuf = gbuf._replace(depth_deriv=torch.where(z > 0.0, _tile_depth_deriv(z, mesh), 0.0))
-    _mark(events, "gbuffer")
+    spans.mark(events, "gbuffer")
 
     # global lane ids (pixels of the whole image): the draws are the whole frame's
     rr = torch.arange(hs, dtype=torch.int64, device=dev)[:, None] + row0
@@ -165,7 +165,7 @@ def _tiled_frame_body(scene, state: TemporalState, config: RenderConfig, mesh: T
         )
         radiance = radiance + sample / config.tracing.batch
     radiance = radiance.reshape(hs, ws, 3)
-    _mark(events, "trace")
+    spans.mark(events, "trace")
 
     thresholds = (sv.depth_threshold, sv.normal_threshold, sv.history_length)
     prev = state.gbuffer
@@ -185,7 +185,7 @@ def _tiled_frame_body(scene, state: TemporalState, config: RenderConfig, mesh: T
         tres = svgf.temporal_filter(
             radiance, full[0], gbuf, _fields_gbuf(depth=full[3], normal=full[4], instance=full[5]),
             full[1], full[2], *thresholds, row0=row0, col0=col0)
-    _mark(events, "temporal")
+    spans.mark(events, "temporal")
 
     # the halo carries max(history, 1) (svgf_tpu/parallel/tiled.py:216); the
     # gathered image carries the history as it is
@@ -194,7 +194,7 @@ def _tiled_frame_body(scene, state: TemporalState, config: RenderConfig, mesh: T
     moments_out = _stencil_tile(
         lambda x, g: svgf.filter_moments(x[0], x[1], g, x[2], sv.phi_colour, sv.phi_normal),
         [tres.color, tres.moments, hist], gbuf, halo, mesh)
-    _mark(events, "moments")
+    spans.mark(events, "moments")
     out = moments_out
     feedback = tres.color if sv.spatial_filter_steps == 0 else None
     for i in range(sv.spatial_filter_steps):
@@ -206,7 +206,7 @@ def _tiled_frame_body(scene, state: TemporalState, config: RenderConfig, mesh: T
         if i == 0:
             feedback = out
     atrous_out = out
-    _mark(events, "atrous")
+    spans.mark(events, "atrous")
 
     if sv.enable_taa:
         ext_f, ext_h = with_tile_halos([atrous_out, state.taa_history.float()], 1, mesh, "edge")
@@ -214,7 +214,7 @@ def _tiled_frame_body(scene, state: TemporalState, config: RenderConfig, mesh: T
     else:
         rgb = clip(atrous_out[..., :3], 0.0, 1.0)
         final = torch.cat([to_srgb(rgb), torch.ones_like(rgb[..., :1])], dim=-1)
-    _mark(events, "taa")
+    spans.mark(events, "taa")
 
     new_gbuf = gbuf.to_dtype(sdtype)
     new_state = TemporalState(
@@ -227,7 +227,7 @@ def _tiled_frame_body(scene, state: TemporalState, config: RenderConfig, mesh: T
         moments_filtered=moments_out, atrous=atrous_out, final=final[..., :3],
         gbuffer=new_gbuf,
     )
-    _mark(events, "state")
+    spans.mark(events, "state")
     return outputs, new_state
 
 

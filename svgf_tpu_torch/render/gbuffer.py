@@ -16,6 +16,7 @@ from svgf_tpu_torch.ops.geometry import (
 )
 from svgf_tpu_torch.ops.intersect import Hit, intersect_scene
 from svgf_tpu_torch.ops.lights import interp
+from svgf_tpu_torch.render import spans
 from svgf_tpu_torch.render.types import GBuffer
 
 
@@ -70,9 +71,10 @@ def _project_view(view, cam_proj, pos, h: int, w: int):
     return px, py
 
 
-def _gbuffer_rays(scene, frame, view, prev_view, proj, ro, rd, h, w, mode):
+def _gbuffer_rays(scene, frame, view, prev_view, proj, ro, rd, h, w, mode, events=None):
     """Per-ray G-buffer fields (everything except the depth derivative)."""
     hit = intersect_scene(scene, ro, rd, mode)
+    spans.mark(events, "gbuffer.intersect")
     ok = hit.dist < MAX_LENGTH
 
     prim = torch.clamp(hit.prim, 0, scene.tri_pos.shape[0] - 1)
@@ -89,7 +91,7 @@ def _gbuffer_rays(scene, frame, view, prev_view, proj, ro, rd, h, w, mode):
 
     okf = ok[..., None]
     minus1 = torch.full_like(hit.instance, -1)
-    return (
+    fields = (
         torch.where(okf, pos, 0.0),
         torch.where(okf, nrm, 0.0),
         torch.where(okf, motion, 0.0),
@@ -99,6 +101,8 @@ def _gbuffer_rays(scene, frame, view, prev_view, proj, ro, rd, h, w, mode):
         torch.where(ok, hit.prim, minus1),
         torch.where(ok, hit.material, minus1),
     )
+    spans.mark(events, "gbuffer.fill")
+    return fields
 
 
 def pad_rows(x, pad: int):
@@ -109,14 +113,15 @@ def pad_rows(x, pad: int):
 def raster_gbuffer(scene, cam_idx: int, h: int, w: int, num_chunks: int = 1,
                    mode: str = "off", block: bool = False, row0: int = 0,
                    h_total: int | None = None, col0: int = 0,
-                   w_total: int | None = None) -> GBuffer:
+                   w_total: int | None = None, events: dict | None = None) -> GBuffer:
     """Trace primary visibility and fill every G-buffer channel, in
     `num_chunks` sequential ray chunks. `mode` is the intersector policy;
     `block` traces the rays in 64x64 pixel blocks, the lane order of large
     scenes (render.pathtrace.make_block_order). row0/h_total (col0/w_total)
     render the pixel rectangle [row0, row0+h) x [col0, col0+w) of the full
     image; the depth derivative at its last row and column is then the
-    clamped one, which the sharded route replaces."""
+    clamped one, which the sharded route replaces. `events`: the parts'
+    marks (render.spans)."""
     h_total = h if h_total is None else h_total
     w_total = w if w_total is None else w_total
     frame = scene.cam_frame[cam_idx]
@@ -136,9 +141,11 @@ def raster_gbuffer(scene, cam_idx: int, h: int, w: int, num_chunks: int = 1,
     rc = -(-R // num_chunks)
     pad = rc * num_chunks - R
     ro, rd = pad_rows(ro, pad), pad_rows(rd, pad)
+    spans.mark(events, "gbuffer.rays")
     parts = [
         _gbuffer_rays(scene, frame, view, prev_view, proj,
-                      ro[k * rc:(k + 1) * rc], rd[k * rc:(k + 1) * rc], h_total, w_total, mode)
+                      ro[k * rc:(k + 1) * rc], rd[k * rc:(k + 1) * rc], h_total, w_total, mode,
+                      events)
         for k in range(num_chunks)
     ]
     fields = [torch.cat(f)[:R] if num_chunks > 1 else f[0] for f in zip(*parts)]

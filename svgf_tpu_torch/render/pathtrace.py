@@ -39,6 +39,7 @@ from svgf_tpu_torch.ops.lights import (
     eval_environment, interp, sample_lights, sample_lights_pdf, sample_lights_pdf_from_hit,
 )
 from svgf_tpu_torch.ops.sampling import RngStream, power_heuristic
+from svgf_tpu_torch.render import spans
 from svgf_tpu_torch.render.gbuffer import pad_rows
 
 
@@ -168,13 +169,14 @@ def set_active_probe(lst) -> None:
 
 def pathtrace(scene, ro, rd, key, lane_ids, bounces: int = 3, clamp: float = 10.0,
               mode: SamplingMode = SamplingMode.MIS, first_hit: Hit | None = None,
-              intersect_mode: str = "off"):
+              intersect_mode: str = "off", events: dict | None = None):
     """Trace one sample per lane. `key` is the host threefry key of this
     sample (ops.keys); `lane_ids` are the lanes' global ids, which the
     random draws hash. Returns (radiance (R,3), rays_traced): rays_traced
     counts the active lanes of every intersect, and all lanes of each
     `only_instance` re-trace. (svgf_tpu also returns the first hit's
-    shading normal, which no caller reads.)"""
+    shading normal, which no caller reads.) `events`: each bounce's parts'
+    marks (render.spans)."""
     R = ro.shape[0]
     dev = ro.device
     state = PathState(
@@ -196,12 +198,14 @@ def pathtrace(scene, ro, rd, key, lane_ids, bounces: int = 3, clamp: float = 10.
     else:
         hit = intersect_scene(scene, ro, rd, intersect_mode)
         nrays = nrays + R
+        spans.mark(events, "trace.primary")
     for b in range(bounces):
         rng = RngStream(fold_in(key, b), lane_ids)
         if mode == SamplingMode.MIS:
-            state, next_hit, nb = _bounce_mis(scene, state, hit, rng, intersect_mode)
+            state, next_hit, nb = _bounce_mis(scene, state, hit, rng, intersect_mode, events, b)
         else:
-            state, next_hit, nb = _bounce_simple(scene, state, hit, rng, mode, intersect_mode)
+            state, next_hit, nb = _bounce_simple(scene, state, hit, rng, mode, intersect_mode,
+                                                 events, b)
         nrays = nrays + nb
         # Russian roulette after bounce 3 (PathTrace.cuh:340-345)
         if b > 3:
@@ -221,6 +225,7 @@ def pathtrace(scene, ro, rd, key, lane_ids, bounces: int = 3, clamp: float = 10.
         if _ACTIVE_PROBE is not None:
             # a fresh tensor each bounce, which no later op writes into
             _ACTIVE_PROBE.append(state.active)
+        spans.mark(events, f"trace.b{b}.cull")
         if b + 1 < bounces:
             if next_hit is not None:
                 # the MIS bounce traced every active lane's next ray already
@@ -230,6 +235,7 @@ def pathtrace(scene, ro, rd, key, lane_ids, bounces: int = 3, clamp: float = 10.
                 hit = intersect_scene(scene, state.ro, state.rd, intersect_mode,
                                       active=state.active)
                 nrays = nrays + state.active.sum()
+                spans.mark(events, f"trace.b{b}.intersect")
 
     radiance = state.radiance
     radiance = torch.where(torch.isfinite(radiance).all(-1, keepdim=True), radiance, 0.0)
@@ -275,7 +281,7 @@ def make_block_order(h: int, w: int, bh: int = BLOCK_H, bw: int = BLOCK_W):
 def pathtrace_chunked(scene, ro, rd, key, bounces: int = 3, clamp: float = 10.0,
                       mode: SamplingMode = SamplingMode.MIS, first_hit: Hit | None = None,
                       num_chunks: int = 1, intersect_mode: str = "off", lane_ids=None,
-                      block_hw=None, checkpoint: bool = False):
+                      block_hw=None, checkpoint: bool = False, events: dict | None = None):
     """Run the wavefront in `num_chunks` sequential lane chunks: peak memory
     scales with the live lane count. Lanes keep their global ids, so the
     result equals the unchunked one. Padding lanes repeat the last ray and
@@ -290,7 +296,10 @@ def pathtrace_chunked(scene, ro, rd, key, bounces: int = 3, clamp: float = 10.0,
     block_hw=(h, w): the lanes are an (h, w) image in row-major order; they
     are traced in 64x64 pixel blocks (make_block_order) and returned in
     row-major order. The random draws hash the pixel ids, so per-pixel
-    results do not change; the edge-padding lanes trace and count."""
+    results do not change; the edge-padding lanes trace and count.
+
+    events: each chunk's bounce marks (render.spans); none under
+    `checkpoint`, whose recompute would mark twice."""
     R = ro.shape[0]
     if lane_ids is None:
         lane_ids = torch.arange(R, dtype=torch.int64, device=ro.device)
@@ -302,6 +311,7 @@ def pathtrace_chunked(scene, ro, rd, key, bounces: int = 3, clamp: float = 10.0,
             scene, fwd(ro), fwd(rd), key, bounces, clamp, mode,
             None if first_hit is None else Hit(*map(fwd, first_hit)),
             num_chunks, intersect_mode, lane_ids=fwd(lane_ids), checkpoint=checkpoint,
+            events=events,
         )
         return inv(rad), nrays
     num_chunks = max(num_chunks, 1)
@@ -316,7 +326,7 @@ def pathtrace_chunked(scene, ro, rd, key, bounces: int = 3, clamp: float = 10.0,
         run = lambda s=s: pathtrace(
             scene, ro[s], rd[s], key, lane_ids[s], bounces, clamp, mode,
             None if first_hit is None else first_hit.chunk(s.start, s.stop),
-            intersect_mode,
+            intersect_mode, None if checkpoint else events,
         )
         rad, nr = torch.utils.checkpoint.checkpoint(run, use_reentrant=False) if checkpoint \
             else run()
@@ -371,9 +381,10 @@ def _enter_volume(scene, state: PathState, mp, normal, outgoing, incoming, shade
             torch.where(enter, mp.anisotropy, state.vol_anisotropy))
 
 
-def _bounce_mis(scene, state: PathState, hit: Hit, rng: RngStream, intersect_mode: str):
-    """One MIS bounce (PathTrace.cuh:148-351). Returns (state, next_hit,
-    rays_traced)."""
+def _bounce_mis(scene, state: PathState, hit: Hit, rng: RngStream, intersect_mode: str,
+                events: dict | None = None, b: int = 0):
+    """One MIS bounce (PathTrace.cuh:148-351), bounce `b` in its parts'
+    marks. Returns (state, next_hit, rays_traced)."""
     R = state.ro.shape[0]
     meta = scene.meta
     types = meta.mat_types_used
@@ -385,6 +396,7 @@ def _bounce_mis(scene, state: PathState, hit: Hit, rng: RngStream, intersect_mod
     emit = B.eval_emission(mp, normal, outgoing)
     add_emit = shade & ~state.use_mis
     radiance = state.radiance + torch.where(add_emit[..., None], state.weight * emit, 0.0)
+    spans.mark(events, f"trace.b{b}.surface")
 
     delta = B.is_delta(mp)
     weight = state.weight
@@ -441,6 +453,8 @@ def _bounce_mis(scene, state: PathState, hit: Hit, rng: RngStream, intersect_mod
         new_ro = torch.where(passthrough[..., None], position + state.rd * 1e-2, new_ro)
         broke = torch.where(passthrough, False, broke)
 
+    spans.mark(events, f"trace.b{b}.sample")
+
     # ONE batched intersect: [NEE shadow | bsdf sample | other next rays].
     # The third segment exists only for scenes that can make delta,
     # in-volume or pass-through continuation rays (static meta flags).
@@ -452,6 +466,7 @@ def _bounce_mis(scene, state: PathState, hit: Hit, rng: RngStream, intersect_mod
         ros, rds, actives = ros + [new_ro], rds + [incoming], actives + [seg3]
     hitN = intersect_scene(scene, torch.cat(ros), torch.cat(rds), intersect_mode,
                            active=torch.cat(actives))
+    spans.mark(events, f"trace.b{b}.intersect")
     shadow = hitN.chunk(0, R)
     mis_hit = hitN.chunk(R, 2 * R)
 
@@ -525,7 +540,8 @@ def _bounce_mis(scene, state: PathState, hit: Hit, rng: RngStream, intersect_mod
     next_hit = mis_hit
     if seg3 is not None:
         m3 = delta | stay | passthrough
-        next_hit = Hit(*(torch.where(m3, a, b) for a, b in zip(hitN.chunk(2 * R, 3 * R), mis_hit)))
+        next_hit = Hit(*(torch.where(m3, x, y) for x, y in zip(hitN.chunk(2 * R, 3 * R), mis_hit)))
+    spans.mark(events, f"trace.b{b}.mis")
     return new_state, next_hit, nrays
 
 
@@ -543,10 +559,12 @@ def n_area_lights(meta) -> int:
 
 
 def _bounce_simple(scene, state: PathState, hit: Hit, rng: RngStream, mode: SamplingMode,
-                   intersect_mode: str):
+                   intersect_mode: str, events: dict | None = None, b: int = 0):
     """BSDF / LIGHT / BOTH estimators (PathTrace.cuh:353-556), with the same
-    media (:396-411, :504-540) and opacity (:430-437) handling as MIS.
-    Returns (state, None: the next bounce traces for itself, rays_traced)."""
+    media (:396-411, :504-540) and opacity (:430-437) handling as MIS,
+    bounce `b` in its parts' marks (its sample part holds the light pdf's
+    re-trace). Returns (state, None: the next bounce traces for itself,
+    rays_traced)."""
     R = state.ro.shape[0]
     meta = scene.meta
     types = meta.mat_types_used
@@ -556,6 +574,7 @@ def _bounce_simple(scene, state: PathState, hit: Hit, rng: RngStream, mode: Samp
 
     emit = B.eval_emission(mp, normal, outgoing)
     radiance = state.radiance + torch.where(shade[..., None], state.weight * emit, 0.0)
+    spans.mark(events, f"trace.b{b}.surface")
 
     delta = B.is_delta(mp)
 
@@ -627,4 +646,5 @@ def _bounce_simple(scene, state: PathState, hit: Hit, rng: RngStream, mode: Samp
         vol_scattering=vol_scattering,
         vol_anisotropy=vol_anisotropy,
     )
+    spans.mark(events, f"trace.b{b}.sample")
     return new_state, None, nrays

@@ -30,21 +30,12 @@ from svgf_tpu_torch.kernels import resolve_kernels
 from svgf_tpu_torch.ops.geometry import clip, to_srgb
 from svgf_tpu_torch.ops.keys import fold_in, key
 from svgf_tpu_torch.ops.sampling import RngStream
-from svgf_tpu_torch.render import svgf
+from svgf_tpu_torch.render import spans, svgf
 from svgf_tpu_torch.render.gbuffer import camera_rays, gbuffer_first_hit, raster_gbuffer
 from svgf_tpu_torch.render.pathtrace import pathtrace_chunked
 from svgf_tpu_torch.render.types import FrameMetrics, FrameOutputs, TemporalState
 
 STATE_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def _mark(events: dict | None, name: str) -> None:
-    """Record a CUDA event named after the stage that just ended, when the
-    caller asked for stage timing (chip_smoke.py)."""
-    if events is not None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events[name] = ev
 
 
 def _filter_stages(device, config: RenderConfig):
@@ -64,50 +55,55 @@ def filter_chain(radiance, gbuf, state: TemporalState, config: RenderConfig,
     moments_out, atrous_out, final, feedback), where `feedback` is next
     frame's temporal history (a-trous iteration 0, or the temporal output
     when there are no a-trous steps). `checkpoint` runs each plain a-trous
-    step under torch.utils.checkpoint (render_frame's)."""
-    F = _filter_stages(radiance.device, config)
-    sv = config.svgf
-    tres = F.temporal_filter(
-        radiance, state.color, gbuf, state.gbuffer, state.moments, state.history_len,
-        depth_threshold=sv.depth_threshold, normal_threshold=sv.normal_threshold,
-        history_base_length=sv.history_length,
-    )
-    _mark(events, "temporal")
-    moments_out = F.filter_moments(
-        tres.color, tres.moments, gbuf, tres.history_len,
-        phi_colour=sv.phi_colour, phi_normal=sv.phi_normal,
-    )
-    _mark(events, "moments")
-    if checkpoint and F is svgf:
-        atrous_out = feedback = moments_out
-        for i in range(sv.spatial_filter_steps):
-            atrous_out = torch.utils.checkpoint.checkpoint(
-                svgf.atrous_iteration, atrous_out, gbuf, 1 << i, sv.phi_colour, sv.phi_normal,
-                use_reentrant=False)
-            if i == 0:
-                feedback = atrous_out
-    else:
-        atrous_out, feedback, _ = F.wavelet_filter(
-            moments_out, gbuf, steps=sv.spatial_filter_steps,
+    step under torch.utils.checkpoint (render_frame's). `events`, when
+    given, receives the marks filter.begin, temporal, moments, atrous and
+    taa, and the call is a recorded frame (render.spans)."""
+    with spans.frame(events, radiance.device):
+        spans.mark(events, "filter.begin")
+        F = _filter_stages(radiance.device, config)
+        sv = config.svgf
+        tres = F.temporal_filter(
+            radiance, state.color, gbuf, state.gbuffer, state.moments, state.history_len,
+            depth_threshold=sv.depth_threshold, normal_threshold=sv.normal_threshold,
+            history_base_length=sv.history_length,
+        )
+        spans.mark(events, "temporal")
+        moments_out = F.filter_moments(
+            tres.color, tres.moments, gbuf, tres.history_len,
             phi_colour=sv.phi_colour, phi_normal=sv.phi_normal,
         )
-    if sv.spatial_filter_steps == 0:
-        feedback = tres.color  # RenderBuffer keeps the temporal output
-    _mark(events, "atrous")
-    if sv.enable_taa:
-        final = F.taa(atrous_out, state.taa_history)
-    else:
-        rgb = clip(atrous_out[..., :3], 0.0, 1.0)
-        final = torch.cat([to_srgb(rgb), torch.ones_like(rgb[..., :1])], dim=-1)
-    _mark(events, "taa")
-    return tres, moments_out, atrous_out, final, feedback
+        spans.mark(events, "moments")
+        if checkpoint and F is svgf:
+            atrous_out = feedback = moments_out
+            for i in range(sv.spatial_filter_steps):
+                atrous_out = torch.utils.checkpoint.checkpoint(
+                    svgf.atrous_iteration, atrous_out, gbuf, 1 << i, sv.phi_colour, sv.phi_normal,
+                    use_reentrant=False)
+                if i == 0:
+                    feedback = atrous_out
+        else:
+            atrous_out, feedback, _ = F.wavelet_filter(
+                moments_out, gbuf, steps=sv.spatial_filter_steps,
+                phi_colour=sv.phi_colour, phi_normal=sv.phi_normal,
+            )
+        if sv.spatial_filter_steps == 0:
+            feedback = tres.color  # RenderBuffer keeps the temporal output
+        spans.mark(events, "atrous")
+        if sv.enable_taa:
+            final = F.taa(atrous_out, state.taa_history)
+        else:
+            rgb = clip(atrous_out[..., :3], 0.0, 1.0)
+            final = torch.cat([to_srgb(rgb), torch.ones_like(rgb[..., :1])], dim=-1)
+        spans.mark(events, "taa")
+        return tres, moments_out, atrous_out, final, feedback
 
 
 def render_frame(scene, state: TemporalState, config: RenderConfig,
                  events: dict | None = None, checkpoint: bool = False):
     """One frame. `events`, when given, receives a CUDA event recorded at
     the end of each stage (gbuffer, trace, temporal, moments, atrous, taa,
-    state).
+    state) and of each part inside them, and the frame is recorded with
+    its host stamps and syncs (render.spans).
 
     The frame is differentiable on the plain filter route (use_pallas
     "off"; the filter kernels refuse autograd) with the intersector on
@@ -117,77 +113,79 @@ def render_frame(scene, state: TemporalState, config: RenderConfig,
     a-trous step's inputs and recomputes them in the backward pass
     (torch.utils.checkpoint): the same numbers, since every draw hashes
     global lane ids, for a fraction of the memory at 1080p."""
-    h, w = config.height, config.width
-    cam = config.tracing.current_camera
-    sdtype = STATE_DTYPES[config.state_dtype]
-    isect = config.use_pallas_intersect or config.use_pallas
-    dev = scene.device
-    _mark(events, "start")
+    with spans.frame(events, scene.device):
+        h, w = config.height, config.width
+        cam = config.tracing.current_camera
+        sdtype = STATE_DTYPES[config.state_dtype]
+        isect = config.use_pallas_intersect or config.use_pallas
+        dev = scene.device
+        spans.mark(events, "start")
 
-    # large scenes trace in 64x64 pixel blocks (render.pathtrace.make_block_order)
-    blocked = scene.meta.soup_leaf_order
+        # large scenes trace in 64x64 pixel blocks (render.pathtrace.make_block_order)
+        blocked = scene.meta.soup_leaf_order
 
-    # ---- 1. Rasterize (primary visibility) ----
-    gbuf = raster_gbuffer(scene, cam, h, w, num_chunks=config.trace_chunks, mode=isect,
-                          block=blocked)
-    _mark(events, "gbuffer")
+        # ---- 1. Rasterize (primary visibility) ----
+        gbuf = raster_gbuffer(scene, cam, h, w, num_chunks=config.trace_chunks, mode=isect,
+                              block=blocked, events=events)
+        spans.mark(events, "gbuffer")
 
-    # ---- 2. Trace (batch x 1spp path tracing) ----
-    frame_key = fold_in(key(config.seed), state.frame_idx)
-    radiance = torch.zeros((h * w, 3), device=dev)
-    rays_traced = torch.tensor(h * w, dtype=torch.int64, device=dev)  # the G-buffer pass
-    pixels = torch.arange(h * w, dtype=torch.int64, device=dev)
-    for s in range(config.tracing.batch):
-        skey = fold_in(frame_key, s)
-        jstream = RngStream(fold_in(skey, 987), pixels)
-        jitter = (jstream.uniform2().reshape(h, w, 2)) * 2.0 - 1.0
-        ro, rd = camera_rays(scene.cam_frame[cam], scene.cam_proj[cam], h, w, jitter=jitter)
-        first_hit = gbuffer_first_hit(gbuf) if config.hybrid_primary else None
-        sample, nr = pathtrace_chunked(
-            scene, ro, rd, skey,
-            bounces=config.tracing.bounces, clamp=config.tracing.clamp,
-            mode=config.tracing.sampling_mode, first_hit=first_hit,
-            num_chunks=config.trace_chunks, intersect_mode=isect,
-            block_hw=(h, w) if blocked else None, checkpoint=checkpoint,
+        # ---- 2. Trace (batch x 1spp path tracing) ----
+        frame_key = fold_in(key(config.seed), state.frame_idx)
+        radiance = torch.zeros((h * w, 3), device=dev)
+        rays_traced = torch.tensor(h * w, dtype=torch.int64, device=dev)  # the G-buffer pass
+        pixels = torch.arange(h * w, dtype=torch.int64, device=dev)
+        for s in range(config.tracing.batch):
+            skey = fold_in(frame_key, s)
+            jstream = RngStream(fold_in(skey, 987), pixels)
+            jitter = (jstream.uniform2().reshape(h, w, 2)) * 2.0 - 1.0
+            ro, rd = camera_rays(scene.cam_frame[cam], scene.cam_proj[cam], h, w, jitter=jitter)
+            first_hit = gbuffer_first_hit(gbuf) if config.hybrid_primary else None
+            spans.mark(events, "trace.setup")
+            sample, nr = pathtrace_chunked(
+                scene, ro, rd, skey,
+                bounces=config.tracing.bounces, clamp=config.tracing.clamp,
+                mode=config.tracing.sampling_mode, first_hit=first_hit,
+                num_chunks=config.trace_chunks, intersect_mode=isect,
+                block_hw=(h, w) if blocked else None, checkpoint=checkpoint, events=events,
+            )
+            radiance = radiance + sample / config.tracing.batch
+            rays_traced = rays_traced + nr
+        radiance = radiance.reshape(h, w, 3)
+        spans.mark(events, "trace")
+
+        # ---- 3-6. Filter chain ----
+        tres, moments_out, atrous_out, final, feedback = filter_chain(
+            radiance, gbuf, state, config, events, checkpoint
         )
-        radiance = radiance + sample / config.tracing.batch
-        rays_traced = rays_traced + nr
-    radiance = radiance.reshape(h, w, 3)
-    _mark(events, "trace")
-
-    # ---- 3-6. Filter chain ----
-    tres, moments_out, atrous_out, final, feedback = filter_chain(
-        radiance, gbuf, state, config, events, checkpoint
-    )
-    new_state = TemporalState(
-        color=feedback.to(sdtype),
-        moments=tres.moments.to(sdtype),
-        history_len=tres.history_len,
-        taa_history=final.to(sdtype),
-        gbuffer=gbuf.to_dtype(sdtype),
-        frame_idx=state.frame_idx + 1,
-    )
-    taps = config.keep_taps or config.debug_output != DebugOutput.FINAL
-    metrics = FrameMetrics(
-        disoccluded_pct=100.0 * (1.0 - tres.reprojected.float().mean()),
-        mean_history=tres.history_len.float().mean(),
-        mean_variance=tres.color[..., 3].mean(),
-        coverage_pct=100.0 * (gbuf.instance >= 0).float().mean(),
-        rays_traced=rays_traced,
-    )
-    outputs = FrameOutputs(
-        image=_select_tap(config.debug_output, radiance, tres, moments_out,
-                          atrous_out, final, gbuf),
-        radiance=radiance if taps else None,
-        temporal=tres.color if taps else None,
-        moments_filtered=moments_out if taps else None,
-        atrous=atrous_out if taps else None,
-        final=final[..., :3],
-        gbuffer=gbuf if taps else None,
-        metrics=metrics,
-    )
-    _mark(events, "state")
-    return outputs, new_state
+        new_state = TemporalState(
+            color=feedback.to(sdtype),
+            moments=tres.moments.to(sdtype),
+            history_len=tres.history_len,
+            taa_history=final.to(sdtype),
+            gbuffer=gbuf.to_dtype(sdtype),
+            frame_idx=state.frame_idx + 1,
+        )
+        taps = config.keep_taps or config.debug_output != DebugOutput.FINAL
+        metrics = FrameMetrics(
+            disoccluded_pct=100.0 * (1.0 - tres.reprojected.float().mean()),
+            mean_history=tres.history_len.float().mean(),
+            mean_variance=tres.color[..., 3].mean(),
+            coverage_pct=100.0 * (gbuf.instance >= 0).float().mean(),
+            rays_traced=rays_traced,
+        )
+        outputs = FrameOutputs(
+            image=_select_tap(config.debug_output, radiance, tres, moments_out,
+                              atrous_out, final, gbuf),
+            radiance=radiance if taps else None,
+            temporal=tres.color if taps else None,
+            moments_filtered=moments_out if taps else None,
+            atrous=atrous_out if taps else None,
+            final=final[..., :3],
+            gbuffer=gbuf if taps else None,
+            metrics=metrics,
+        )
+        spans.mark(events, "state")
+        return outputs, new_state
 
 
 def _select_tap(tap: DebugOutput, radiance, tres, moments_out, atrous_out, final, gbuf):
