@@ -2,7 +2,8 @@
 against svgf_tpu's jax.value_and_grad on the same scene data.
 
 Two configurations, each differentiated once per package in module
-fixtures (svgf_tpu's gradient compile takes 15-45 s here):
+fixtures (the two fixtures together take 164-211 s to set up under the
+tier-1 command on an 8-core CPU):
   * "camera": tests/test_camera_grad.py's setup, 40x32, 1 bounce, 1 a-trous
     step, float32 state; two frames (the temporal path on), the loss
     mean(final**2), the parameters mat_colour, mat_emission and cam_frame;

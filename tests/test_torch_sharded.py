@@ -246,6 +246,8 @@ def jax_frames():
     JAX_ROUTE, and the initial state, as NumPy."""
     import jax
     import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
 
     from svgf_tpu import RenderConfig as JConfig
     from svgf_tpu import SVGFConfig as JSVGF
@@ -263,13 +265,18 @@ def jax_frames():
     mesh = j_mesh(NRANKS)
     # an int32 frame index from the start: one compilation serves both frames
     initial = JState.initial(H, W, jnp.float32)._replace(frame_idx=jnp.asarray(0, jnp.int32))
+    # placed as the step places the state it returns (image leaves split
+    # over the rows, the frame index replicated): the first frame then runs
+    # the program that the second runs, and each route is built once
+    placed = jax.tree.map(lambda x: NamedSharding(mesh, P(*mesh.axis_names) if x.ndim else P()),
+                          initial)
     frames = {}
     for steps, use_pallas in sorted(set(JAX_ROUTE.values())):
         cfg = JConfig(width=W, height=H, state_dtype="float32", planar_chain=False,
                       use_pallas=use_pallas, svgf=JSVGF(spatial_filter_steps=steps),
                       tracing=JTracing(bounces=2), trace_balance=True)
         step = j_step(cfg, mesh)
-        state = jax.tree.map(jnp.copy, initial)   # the step donates its state
+        state = jax.device_put(jax.tree.map(jnp.copy, initial), placed)   # the step donates its state
         outs = []
         for _ in range(FRAMES):
             out, state = step(arrays, state)
