@@ -192,6 +192,16 @@ Phases, each failing loudly (no phase catches an exception):
      winners differ, those lanes printed). Every row's K5 launches held to
      the tool's K5_CALLS; each row prints its forward + backward ms (CUDA
      events) and peak memory.
+ 19. the MIS bounce's shading kernels (csrc/shade.cu, runs after phase 6):
+     three bounces on the 1080p Cornell box's jittered camera rays, each
+     through shade_pre, K5 and shade_post against the plain bounce from the
+     same state and hit (every state field, the next hit and the rays
+     traced bit for bit), shade_pre and shade_post alone against their
+     bound in bytes, and the whole bounce on both routes; phases 6-18 hold
+     each frame's shading launches to expected_launches (one of each
+     kernel a bounce of a chunk where kernels/shade.py scene_fits). Alone:
+     python3 -c "import chip_smoke as c; c.check_card(); c.build_kernels(); \
+c.check_shade_kernels()"
 Each kernel-alone time, device-kernel count and profiled frame comes from
 svgf_tpu_torch/scripts/timing.py profile_calls (a warm-up call and a
 marker kernel a session, sessions repeated until the profiler recorded
@@ -1359,7 +1369,8 @@ def expected_launches(intersector: str, chunks: int, meta, frames: int = FRAMES,
     for each of the `steps`; the intersector once per G-buffer chunk and,
     per trace chunk and MIS bounce, once for the bounce's batched rays and,
     in a scene with media, once per area light for the scatter event's
-    only_instance re-trace (the primary hit comes from the G-buffer)."""
+    only_instance re-trace (the primary hit comes from the G-buffer); the
+    shading kernels as shade_launches says."""
     from svgf_tpu_torch.config import RenderConfig, SamplingMode
     from svgf_tpu_torch.kernels.launch import LAUNCHES
     from svgf_tpu_torch.render.pathtrace import n_area_lights
@@ -1372,7 +1383,21 @@ def expected_launches(intersector: str, chunks: int, meta, frames: int = FRAMES,
     launches = dict.fromkeys(LAUNCHES, 0)
     launches.update(temporal=frames, moments=frames, atrous=steps * frames, taa=frames)
     launches[intersector] = frames * per_frame
+    launches.update(shade_launches(meta, chunks, frames))
     return launches
+
+
+def shade_launches(meta, chunks: int, frames: int = FRAMES) -> dict:
+    """The shading kernels' launches over `frames` frames of the default
+    tracing (MIS, its bounces and samples) in `chunks` trace chunks: one of
+    each a bounce of a chunk where the scene fits them (kernels/shade.py
+    scene_fits), none else."""
+    from svgf_tpu_torch.config import RenderConfig
+    from svgf_tpu_torch.kernels.shade import scene_fits
+
+    cfg = RenderConfig()
+    n = frames * chunks * cfg.tracing.batch * cfg.tracing.bounces if scene_fits(meta) else 0
+    return {"shade_pre": n, "shade_post": n}
 
 
 def check_image(out, h, w, label):
@@ -1465,6 +1490,98 @@ def check_main_path() -> tuple[dict, dict]:
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# the MIS bounce's shading kernels (csrc/shade.cu)
+# ---------------------------------------------------------------------------
+
+SHADE_BOUNCES = 3
+
+
+def shade_bound(hit, state) -> dict:
+    """The least time of one bounce's shade_pre and shade_post on these
+    inputs, by the bytes csrc/shade.cu's note counts: every lane's active
+    flag and hit distance, and shade_pre's two ray flags or shade_post's
+    radiance, weight, MIS flag and new state (80 B); a lane that shades its
+    hit's other 20 B, its direction, its lane id and two rays out
+    (shade_pre, 88 B), or the rays and the intersect's two hits in
+    (shade_post, 128 B); shade_post's other lanes their origin and
+    direction (24 B). Operations (a few hundred FP32 a shading lane) take
+    a twentieth of the bytes' time."""
+    R = state.rd.shape[0]
+    act = int((state.active & (hit.dist < 1e30)).sum())
+    return {"lanes": R, "shading_lanes": act, "pre": bound(R * 7 + act * 88, 0),
+            "post": bound(R * 80 + act * 128 + (R - act) * 24, 0)}
+
+
+def check_shade_kernels() -> dict:
+    """Phase 19: the shading kernels on the 1080p Cornell box's jittered
+    camera rays and their K5 hits, SHADE_BOUNCES MIS bounces: each bounce
+    through the kernels (render/pathtrace.py _bounce_mis_kernels) against
+    the plain bounce (_bounce_mis and _cull) from the same state and hit,
+    every state field, the next hit and the rays traced bit for bit; each
+    bounce's shade_pre and shade_post alone (the profiler) against their
+    bound, and the whole bounce, its K5 call included, on both routes
+    (events, in turns plain, kernels, kernels, plain)."""
+    from svgf_tpu_torch.kernels import shade as SK
+    from svgf_tpu_torch.ops.intersect import intersect_scene
+    from svgf_tpu_torch.ops.keys import fold_in, key
+    from svgf_tpu_torch.ops.sampling import RngStream, key_to_seed32
+    from svgf_tpu_torch.render import pathtrace as pt
+    from svgf_tpu_torch.render.gbuffer import camera_rays
+    from svgf_tpu_torch.scenes.cornell import cornell_box
+
+    arrays = cornell_box(aspect=W / H).flatten(device=DEVICE)
+    R = H * W
+    lanes = torch.arange(R, device=DEVICE)
+    jitter = RngStream(key(11), lanes).uniform2().reshape(H, W, 2) * 2.0 - 1.0
+    ro, rd = camera_rays(arrays.cam_frame[0], arrays.cam_proj[0], H, W, jitter=jitter)
+    state = pt._start_state(ro, rd)
+    res = {}
+    with torch.no_grad():
+        hit = intersect_scene(arrays, ro, rd, "on")
+        for b in range(SHADE_BOUNCES):
+            k = fold_in(key(3), b)
+
+            def plain(state=state, hit=hit, k=k, b=b):
+                rng = RngStream(k, lanes)
+                st, next_hit, rays = pt._bounce_mis(arrays, state, hit, rng, "on", b=b)
+                return pt._cull(st, rng, b), next_hit, rays
+
+            def kernels(state=state, hit=hit, k=k, b=b):
+                rays = torch.zeros((), dtype=torch.int64, device=DEVICE)
+                st, next_hit = pt._bounce_mis_kernels(arrays, state, hit, k, lanes, rays, "on",
+                                                      b=b)
+                return st, next_hit, rays
+
+            want, got = plain(), kernels()
+            for name in ("radiance", "weight", "active", "use_mis", "ro", "rd"):
+                a, e = getattr(got[0], name), getattr(want[0], name)
+                assert torch.equal(a, e), (b, name, int((a != e).reshape(R, -1).any(-1).sum()))
+            assert all(torch.equal(a, e) for a, e in zip(got[1], want[1])), f"bounce {b}: next hit"
+            assert int(got[2]) == int(want[2]), (b, int(got[2]), int(want[2]))
+            seed, rays = key_to_seed32(k), torch.zeros((), dtype=torch.int64, device=DEVICE)
+            ro2, rd2, act2 = SK.shade_pre(arrays, hit, state, lanes, seed, rays)
+            hit2 = intersect_scene(arrays, ro2, rd2, "on", active=act2)
+            row = {"pre_alone_ms": kernel_alone_ms(
+                       lambda: SK.shade_pre(arrays, hit, state, lanes, seed, rays)),
+                   "post_alone_ms": kernel_alone_ms(
+                       lambda: SK.shade_post(arrays, hit, hit2, ro2, rd2, state, lanes, seed,
+                                             False)),
+                   **time_pair(f"MIS bounce {b} (K5 included)", kernels, plain, plain_iters=5),
+                   **shade_bound(hit, state), "rays_traced": int(want[2])}
+            for part in ("pre", "post"):
+                row[part]["share"] = row[part]["bound_ms"] / row[f"{part}_alone_ms"]
+            log(f"shading, bounce {b}: {row['shading_lanes']} of {R} lanes shade, "
+                f"{row['rays_traced']} rays traced; shade_pre alone {row['pre_alone_ms']:.4f} ms "
+                f"(bound {row['pre']['bound_ms']:.4f}, {100 * row['pre']['share']:.1f}%), "
+                f"shade_post alone {row['post_alone_ms']:.4f} ms (bound "
+                f"{row['post']['bound_ms']:.4f}, {100 * row['post']['share']:.1f}%); the bounce "
+                f"{row['ms']:.4f} ms on the kernels, {row['plain_ms']:.4f} ms plain; bit for bit")
+            res[f"bounce {b}"] = row
+            state, hit = want[0], want[1]
+    return res
+
+
 def check_bf16_path() -> None:
     """The main path with bfloat16 state: FRAMES Cornell 1080p frames
     through the kernels, K1 and K4 reading the bf16 state, with the fp16
@@ -1535,7 +1652,8 @@ def sharded_frames(mesh, device, state_dtype: str):
     per_frame = TRACE_CHUNKS * cfg.tracing.batch * (cfg.tracing.bounces + (not cfg.hybrid_primary))
     expect = dict.fromkeys(LAUNCHES, 0)
     expect.update(temporal_band=FRAMES, moments_band=FRAMES, atrous_iteration=5 * FRAMES,
-                  taa_band=FRAMES, intersect_dense=FRAMES * (1 + per_frame))
+                  taa_band=FRAMES, intersect_dense=FRAMES * (1 + per_frame),
+                  **shade_launches(holder.arrays.meta, TRACE_CHUNKS))
     assert launches == expect, (launches, expect)
     assert state.color.dtype == STATE_DTYPES[state_dtype], state.color.dtype
     final = out.final
@@ -2998,13 +3116,15 @@ def check_balance() -> dict:
 
 def check_trace_sweep() -> dict:
     """profile_trace over TOOL_CHUNKS at 1080p: each count's launches a
-    frame (K1, K2 and K5 once a G-buffer chunk and a bounce of a chunk), and
+    frame (K1, K2 and K5 once a G-buffer chunk and a bounce of a chunk, the
+    shading kernels once a bounce of a chunk), and
     the first frame's radiance equal at every count (max error 0: lanes
     keep their global ids); prints the lanes that differ, if any."""
     from svgf_tpu_torch.scripts import profile_trace
 
     sweep = profile_trace.main([str(c) for c in TOOL_CHUNKS], device=DEVICE)
-    expect = {f"trace_chunks={c}": {"temporal": 1, "moments": 1, "intersect_dense": 4 * c}
+    expect = {f"trace_chunks={c}": {"temporal": 1, "moments": 1, "intersect_dense": 4 * c,
+                                    "shade_pre": 3 * c, "shade_post": 3 * c}
               for c in TOOL_CHUNKS}
     expect[f"gbuffer alone (chunks={TOOL_CHUNKS[-1]})"] = {"intersect_dense": TOOL_CHUNKS[-1]}
     check_tool_rows("profile_trace", sweep.rows, expect)
@@ -3046,7 +3166,8 @@ def check_measuring_tools(smi: str) -> dict:
         "intersect_scene (pallas)": k5, "intersect_scene (xla dense)": {},
         "intersect_scene (all-inactive)": k5, "_shading_point": {}, "sample_lights": {},
         "sample_lights_pdf_from_hit": {}, "bsdf sample+eval+pdf": {},
-        "12x rng uniform draws": {}, "one full MIS bounce": k5})
+        "12x rng uniform draws": {},
+        "one full MIS bounce": {**k5, "shade_pre": K, "shade_post": K}})
     res["parts"] = {r["label"]: {k: r[k] for k in ("device_ms", "host_ms", "kernels")}
                     for r in parts}
 
@@ -3389,6 +3510,7 @@ def main() -> int:
     numpy_flatten_s = time.perf_counter() - t0
     timed["intersect_clustered"] = phase("K6", check_clustered_kernel, arrays, *stress_rays(arrays))
     launches, matte = phase("main path", check_main_path)
+    shade = phase("shading kernels", check_shade_kernels)
     phase("main path, bf16 state", check_bf16_path)
     phase("quick start", check_quick_start, smi)
     # K9a is K3's chain (one function in the port's one layout): its row is K3's call
@@ -3428,6 +3550,7 @@ def main() -> int:
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"shade": shade}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # the suffixes of the entries that read the SVGF state at its stored type
 # (fp32, fp16, bf16); kernels/filter.py maps torch dtypes onto them
 STATE_TYPES = ("f32", "f16", "bf16")
@@ -43,6 +44,9 @@ SIGNATURES = {
     **{f"svgf_taa_{t}": [_P] * 3 + [_I, _I, _P] for t in STATE_TYPES},
     "svgf_intersect_dense": [_P] * 12 + [_I, _I, _I, _I, _P],
     "svgf_intersect_bvh": [_P] * 14 + [_I, _I, _P, _P],
+    # the scene's 9 tables, the lights' host ints and 6 counts, then the rays
+    "svgf_shade_pre": [_P] * 10 + [_I] * 6 + [_P] * 13 + [_U, _I, _P],
+    "svgf_shade_post": [_P] * 10 + [_I] * 6 + [_P] * 27 + [_U, _I, _I, _F, _I, _P],
 }
 
 

@@ -12,7 +12,8 @@ import torch
 # kernel and nowhere else; chip_smoke.py reads them around the main path.
 LAUNCHES = {"temporal": 0, "moments": 0, "atrous": 0, "taa": 0,
             "intersect_dense": 0, "intersect_clustered": 0,
-            "temporal_band": 0, "moments_band": 0, "atrous_iteration": 0, "taa_band": 0}
+            "temporal_band": 0, "moments_band": 0, "atrous_iteration": 0, "taa_band": 0,
+            "shade_pre": 0, "shade_post": 0}
 
 
 def reset_launches() -> None:
@@ -49,7 +50,9 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def launch(fn, device, *args) -> None:
     """Call a launcher of the kernel library on the current stream of
-    `device`; raises if the launch failed."""
+    `device`; raises if the launch failed. A tensor among `args` goes as
+    its pointer, and lives until the kernel is on the stream."""
+    args = [ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
         err = fn(*args, stream)

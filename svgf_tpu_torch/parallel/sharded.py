@@ -218,6 +218,7 @@ def _frame_body(scene, state: TemporalState, config: RenderConfig, mesh: RowMesh
             bounces=config.tracing.bounces, clamp=config.tracing.clamp,
             mode=config.tracing.sampling_mode, first_hit=first_hit,
             num_chunks=config.trace_chunks, intersect_mode=isect, lane_ids=ids,
+            shade_mode=config.use_pallas,
         )
         if balance:
             (sample,) = a2a_inv([sample])

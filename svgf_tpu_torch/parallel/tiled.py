@@ -162,6 +162,7 @@ def _tiled_frame_body(scene, state: TemporalState, config: RenderConfig, mesh: T
             bounces=config.tracing.bounces, clamp=config.tracing.clamp,
             mode=config.tracing.sampling_mode, first_hit=first_hit,
             num_chunks=config.trace_chunks, intersect_mode=isect, lane_ids=lane_ids,
+            shade_mode=config.use_pallas,
         )
         radiance = radiance + sample / config.tracing.batch
     radiance = radiance.reshape(hs, ws, 3)

@@ -16,7 +16,10 @@ run where the scene's static flags (`SceneMeta.has_media`, `has_opacity`,
 pass-through consumes a bounce, as in svgf_tpu. Lanes are masked, never
 compacted. Random draws come from the counter-based RngStream in
 svgf_tpu's call order, draws that no lane uses included, so each lane
-gets the JAX tracer's numbers bit for bit.
+gets the JAX tracer's numbers bit for bit. On the card a MIS bounce of a
+scene that `kernels.shade.takes_kernels` admits (matte, instance lights,
+no autograd, the kernel policy on) shades in two hand-written kernels
+around its intersect (`_bounce_mis_kernels`), bit for bit `_bounce_mis`.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from svgf_tpu_torch.config import SamplingMode
+from svgf_tpu_torch.kernels import shade as SK
 from svgf_tpu_torch.ops import bsdf as B
 from svgf_tpu_torch.ops import media as M
 from svgf_tpu_torch.ops import texture as T
@@ -38,7 +42,7 @@ from svgf_tpu_torch.ops.keys import fold_in
 from svgf_tpu_torch.ops.lights import (
     eval_environment, interp, sample_lights, sample_lights_pdf, sample_lights_pdf_from_hit,
 )
-from svgf_tpu_torch.ops.sampling import RngStream, power_heuristic
+from svgf_tpu_torch.ops.sampling import RngStream, key_to_seed32, power_heuristic
 from svgf_tpu_torch.render import spans
 from svgf_tpu_torch.render.gbuffer import pad_rows
 
@@ -119,6 +123,23 @@ class PathState(NamedTuple):
     vol_anisotropy: torch.Tensor  # (R,)
 
 
+def _start_state(ro, rd) -> PathState:
+    """Every lane active at its camera ray, no radiance, unit weight."""
+    R, dev = ro.shape[0], ro.device
+    return PathState(
+        radiance=torch.zeros((R, 3), device=dev),
+        weight=torch.ones((R, 3), device=dev),
+        active=torch.ones((R,), dtype=torch.bool, device=dev),
+        use_mis=torch.zeros((R,), dtype=torch.bool, device=dev),
+        ro=ro,
+        rd=rd,
+        in_volume=torch.zeros((R,), dtype=torch.bool, device=dev),
+        vol_density=torch.zeros((R, 3), device=dev),
+        vol_scattering=torch.zeros((R, 3), device=dev),
+        vol_anisotropy=torch.zeros((R,), device=dev),
+    )
+
+
 def _sample_medium(state: PathState, hit: Hit, rng: RngStream):
     """Transmittance-sample a scatter distance for in-volume lanes
     (PathTrace.cuh:187-202). Returns (state, stay_in_volume, distance). The
@@ -169,29 +190,21 @@ def set_active_probe(lst) -> None:
 
 def pathtrace(scene, ro, rd, key, lane_ids, bounces: int = 3, clamp: float = 10.0,
               mode: SamplingMode = SamplingMode.MIS, first_hit: Hit | None = None,
-              intersect_mode: str = "off", events: dict | None = None):
+              intersect_mode: str = "off", events: dict | None = None, shade_mode: str = "off"):
     """Trace one sample per lane. `key` is the host threefry key of this
     sample (ops.keys); `lane_ids` are the lanes' global ids, which the
     random draws hash. Returns (radiance (R,3), rays_traced): rays_traced
     counts the active lanes of every intersect, and all lanes of each
     `only_instance` re-trace. (svgf_tpu also returns the first hit's
     shading normal, which no caller reads.) `events`: each bounce's parts'
-    marks (render.spans)."""
+    marks (render.spans). `shade_mode`: the kernel policy (use_pallas) of
+    the MIS bounce's shading, whose kernels (`_bounce_mis_kernels`) run
+    where `kernels.shade.takes_kernels` says; else `_bounce_mis`."""
     R = ro.shape[0]
     dev = ro.device
-    state = PathState(
-        radiance=torch.zeros((R, 3), device=dev),
-        weight=torch.ones((R, 3), device=dev),
-        active=torch.ones((R,), dtype=torch.bool, device=dev),
-        use_mis=torch.zeros((R,), dtype=torch.bool, device=dev),
-        ro=ro,
-        rd=rd,
-        in_volume=torch.zeros((R,), dtype=torch.bool, device=dev),
-        vol_density=torch.zeros((R, 3), device=dev),
-        vol_scattering=torch.zeros((R, 3), device=dev),
-        vol_anisotropy=torch.zeros((R,), device=dev),
-    )
+    state = _start_state(ro, rd)
     nrays = torch.zeros((), dtype=torch.int64, device=dev)
+    kernels = SK.takes_kernels(scene.meta, mode, shade_mode, dev)
 
     if first_hit is not None:
         hit = first_hit
@@ -200,28 +213,21 @@ def pathtrace(scene, ro, rd, key, lane_ids, bounces: int = 3, clamp: float = 10.
         nrays = nrays + R
         spans.mark(events, "trace.primary")
     for b in range(bounces):
-        rng = RngStream(fold_in(key, b), lane_ids)
-        if mode == SamplingMode.MIS:
-            state, next_hit, nb = _bounce_mis(scene, state, hit, rng, intersect_mode, events, b)
+        if kernels:
+            # shade_post also takes the roulette, the dead lanes and, last, the final clamp
+            state, next_hit = _bounce_mis_kernels(
+                scene, state, hit, fold_in(key, b), lane_ids, nrays, intersect_mode, events, b,
+                clamp if b + 1 == bounces else None)
         else:
-            state, next_hit, nb = _bounce_simple(scene, state, hit, rng, mode, intersect_mode,
-                                                 events, b)
-        nrays = nrays + nb
-        # Russian roulette after bounce 3 (PathTrace.cuh:340-345)
-        if b > 3:
-            rr = torch.clamp_max(state.weight.amax(-1), 0.99)
-            kill = rng.uniform() >= rr
-            survive = state.active & ~kill
-            state = state._replace(
-                active=survive,
-                weight=torch.where(
-                    survive[..., None],
-                    state.weight / torch.clamp_min(rr, 1e-6)[..., None],
-                    state.weight,
-                ),
-            )
-        dead = (state.weight.amax(-1) <= 0.0) | ~torch.isfinite(state.weight).all(-1)
-        state = state._replace(active=state.active & ~dead)
+            rng = RngStream(fold_in(key, b), lane_ids)
+            if mode == SamplingMode.MIS:
+                state, next_hit, nb = _bounce_mis(scene, state, hit, rng, intersect_mode, events,
+                                                  b)
+            else:
+                state, next_hit, nb = _bounce_simple(scene, state, hit, rng, mode,
+                                                     intersect_mode, events, b)
+            nrays = nrays + nb
+            state = _cull(state, rng, b)
         if _ACTIVE_PROBE is not None:
             # a fresh tensor each bounce, which no later op writes into
             _ACTIVE_PROBE.append(state.active)
@@ -238,10 +244,32 @@ def pathtrace(scene, ro, rd, key, lane_ids, bounces: int = 3, clamp: float = 10.
                 spans.mark(events, f"trace.b{b}.intersect")
 
     radiance = state.radiance
+    if kernels and bounces > 0:
+        return radiance, nrays   # clamped by the last shade_post
     radiance = torch.where(torch.isfinite(radiance).all(-1, keepdim=True), radiance, 0.0)
     m = radiance.amax(-1)
     scale = torch.where(m > clamp, clamp / torch.clamp_min(m, clamp), 1.0)
     return radiance * scale[..., None], nrays
+
+
+def _cull(state: PathState, rng: RngStream, b: int) -> PathState:
+    """The end of bounce `b` on the plain route: Russian roulette after
+    bounce 3 (PathTrace.cuh:340-345), on the bounce's stream, then the dead
+    lanes (no weight left, or not finite) leave the active set."""
+    if b > 3:
+        rr = torch.clamp_max(state.weight.amax(-1), 0.99)
+        kill = rng.uniform() >= rr
+        survive = state.active & ~kill
+        state = state._replace(
+            active=survive,
+            weight=torch.where(
+                survive[..., None],
+                state.weight / torch.clamp_min(rr, 1e-6)[..., None],
+                state.weight,
+            ),
+        )
+    dead = (state.weight.amax(-1) <= 0.0) | ~torch.isfinite(state.weight).all(-1)
+    return state._replace(active=state.active & ~dead)
 
 
 BLOCK_H, BLOCK_W = 64, 64  # 4,096-pixel blocks of the large-scene lane order
@@ -281,7 +309,8 @@ def make_block_order(h: int, w: int, bh: int = BLOCK_H, bw: int = BLOCK_W):
 def pathtrace_chunked(scene, ro, rd, key, bounces: int = 3, clamp: float = 10.0,
                       mode: SamplingMode = SamplingMode.MIS, first_hit: Hit | None = None,
                       num_chunks: int = 1, intersect_mode: str = "off", lane_ids=None,
-                      block_hw=None, checkpoint: bool = False, events: dict | None = None):
+                      block_hw=None, checkpoint: bool = False, events: dict | None = None,
+                      shade_mode: str = "off"):
     """Run the wavefront in `num_chunks` sequential lane chunks: peak memory
     scales with the live lane count. Lanes keep their global ids, so the
     result equals the unchunked one. Padding lanes repeat the last ray and
@@ -299,7 +328,7 @@ def pathtrace_chunked(scene, ro, rd, key, bounces: int = 3, clamp: float = 10.0,
     results do not change; the edge-padding lanes trace and count.
 
     events: each chunk's bounce marks (render.spans); none under
-    `checkpoint`, whose recompute would mark twice."""
+    `checkpoint`, whose recompute would mark twice. shade_mode: pathtrace's."""
     R = ro.shape[0]
     if lane_ids is None:
         lane_ids = torch.arange(R, dtype=torch.int64, device=ro.device)
@@ -311,7 +340,7 @@ def pathtrace_chunked(scene, ro, rd, key, bounces: int = 3, clamp: float = 10.0,
             scene, fwd(ro), fwd(rd), key, bounces, clamp, mode,
             None if first_hit is None else Hit(*map(fwd, first_hit)),
             num_chunks, intersect_mode, lane_ids=fwd(lane_ids), checkpoint=checkpoint,
-            events=events,
+            events=events, shade_mode=shade_mode,
         )
         return inv(rad), nrays
     num_chunks = max(num_chunks, 1)
@@ -326,7 +355,7 @@ def pathtrace_chunked(scene, ro, rd, key, bounces: int = 3, clamp: float = 10.0,
         run = lambda s=s: pathtrace(
             scene, ro[s], rd[s], key, lane_ids[s], bounces, clamp, mode,
             None if first_hit is None else first_hit.chunk(s.start, s.stop),
-            intersect_mode, None if checkpoint else events,
+            intersect_mode, None if checkpoint else events, shade_mode,
         )
         rad, nr = torch.utils.checkpoint.checkpoint(run, use_reentrant=False) if checkpoint \
             else run()
@@ -543,6 +572,32 @@ def _bounce_mis(scene, state: PathState, hit: Hit, rng: RngStream, intersect_mod
         next_hit = Hit(*(torch.where(m3, x, y) for x, y in zip(hitN.chunk(2 * R, 3 * R), mis_hit)))
     spans.mark(events, f"trace.b{b}.mis")
     return new_state, next_hit, nrays
+
+
+def _bounce_mis_kernels(scene, state: PathState, hit: Hit, key, lane_ids, nrays,
+                        intersect_mode: str, events: dict | None = None, b: int = 0,
+                        clamp: float | None = None):
+    """One MIS bounce through the shading kernels (kernels/shade.py), for
+    the scenes and policies `takes_kernels` admits: shade_pre, the one
+    batched intersect of its shadow and BSDF rays, shade_post, which also
+    takes pathtrace's roulette and dead lanes and, given `clamp`, its final
+    clamp. The marks are _bounce_mis's and pathtrace's: `sample` follows
+    `surface`, and `cull` `mis`, with nothing between. `key`: the bounce's
+    key; adds the rays it traces to `nrays` in place. Returns (state, the
+    next bounce's hit); the state's tensors are fresh."""
+    R = state.ro.shape[0]
+    seed = key_to_seed32(key)
+    ro2, rd2, act2 = SK.shade_pre(scene, hit, state, lane_ids, seed, nrays)
+    spans.mark(events, f"trace.b{b}.surface")
+    spans.mark(events, f"trace.b{b}.sample")
+    hit2 = intersect_scene(scene, ro2, rd2, intersect_mode, active=act2)
+    spans.mark(events, f"trace.b{b}.intersect")
+    radiance, weight, active, use_mis, ro, rd = SK.shade_post(
+        scene, hit, hit2, ro2, rd2, state, lane_ids, seed, b > 3, clamp)
+    spans.mark(events, f"trace.b{b}.mis")
+    state = state._replace(radiance=radiance, weight=weight, active=active, use_mis=use_mis,
+                           ro=ro, rd=rd)
+    return state, hit2.chunk(R, 2 * R)
 
 
 def _needs_seg3(meta) -> bool:

@@ -12,7 +12,9 @@ filter stages run either the CUDA kernels (kernels.filter) or their plain
 torch versions (render.svgf), as `kernels.resolve_kernels` decides from
 `config.use_pallas` and the tensors' device; the intersector runs its
 kernels (kernels.intersect) or plain versions (ops.intersect) as
-`config.use_pallas_intersect` (else `use_pallas`) decides. Scenes over
+`config.use_pallas_intersect` (else `use_pallas`) decides, and the MIS
+bounce's shading its kernels (kernels.shade) where `use_pallas` resolves
+to them and `kernels.shade.takes_kernels` admits the scene. Scenes over
 DENSE_MAX_TRIS triangles trace in 64x64 pixel blocks. `config.planar_chain`
 has no meaning here and is ignored: the port has one state layout.
 """
@@ -147,6 +149,7 @@ def render_frame(scene, state: TemporalState, config: RenderConfig,
                 mode=config.tracing.sampling_mode, first_hit=first_hit,
                 num_chunks=config.trace_chunks, intersect_mode=isect,
                 block_hw=(h, w) if blocked else None, checkpoint=checkpoint, events=events,
+                shade_mode=config.use_pallas,
             )
             radiance = radiance + sample / config.tracing.batch
             rays_traced = rays_traced + nr

@@ -6,8 +6,10 @@ box's 16:9 camera rays tiled to R) each part of a bounce runs K times a
 rep: the intersector through K5 and through the plain dense sweep, K5 on
 an all-inactive mask, the shading point, light sampling and its pdf, the
 BSDF's sample, evaluation and pdf, six uniform draws, and one whole MIS
-bounce (_bounce_mis, whose one batched intersect traces the shadow ray and
-the BSDF sample together). Each part gets timing.timed's figures: device
+bounce on the route a frame takes (whose one batched intersect traces the
+shadow ray and the BSDF sample together): on the card the shading kernels
+around it (render/pathtrace.py _bounce_mis_kernels), on the CPU the plain
+_bounce_mis. Each part gets timing.timed's figures: device
 ms, host ms and, on the card, its device kernels, and the kernel launches
 the wrappers counted in a rep. The labels are svgf_tpu's ("pallas" is K5,
 "xla dense" the plain sweep). Eager PyTorch does not merge repeated calls,
@@ -45,12 +47,16 @@ def part_inputs(R: int, device):
 def main(argv=None, device="cuda") -> list:
     import torch
 
+    from svgf_tpu_torch.config import SamplingMode
+    from svgf_tpu_torch.kernels.shade import takes_kernels
     from svgf_tpu_torch.ops import bsdf as B
     from svgf_tpu_torch.ops.intersect import intersect_scene
     from svgf_tpu_torch.ops.keys import key
     from svgf_tpu_torch.ops.lights import sample_lights, sample_lights_pdf_from_hit
     from svgf_tpu_torch.ops.sampling import RngStream
-    from svgf_tpu_torch.render.pathtrace import PathState, _bounce_mis, _shading_point
+    from svgf_tpu_torch.render.pathtrace import (
+        _bounce_mis, _bounce_mis_kernels, _shading_point, _start_state,
+    )
     from svgf_tpu_torch.scripts.timing import fmt, kernel_mode, report, timed
 
     argv = sys.argv[1:] if argv is None else argv
@@ -91,15 +97,11 @@ def main(argv=None, device="cuda") -> list:
             return acc
 
         def bounce():
-            st = PathState(
-                radiance=torch.zeros((R, 3), device=device),
-                weight=torch.ones((R, 3), device=device),
-                active=torch.ones((R,), dtype=torch.bool, device=device),
-                use_mis=none, ro=ro, rd=rd, in_volume=none,
-                vol_density=torch.zeros((R, 3), device=device),
-                vol_scattering=torch.zeros((R, 3), device=device),
-                vol_anisotropy=torch.zeros((R,), device=device),
-            )
+            # the route pathtrace takes for this scene and policy
+            st = _start_state(ro, rd)
+            if takes_kernels(arrays.meta, SamplingMode.MIS, mode, device):
+                rays = torch.zeros((), dtype=torch.int64, device=device)
+                return _bounce_mis_kernels(arrays, st, hit0, k0, ids, rays, mode)
             return _bounce_mis(arrays, st, hit0, RngStream(k0, ids), mode)
 
         part("intersect_scene (pallas)", lambda: intersect_scene(arrays, ro, rd, mode))

@@ -181,7 +181,8 @@ def test_wrappers_on_cpu_are_the_plain_versions():
     assert torch.equal(K.taa(m, state.taa_history), P.taa(m, state.taa_history))
     assert K.LAUNCHES == dict.fromkeys(
         ("temporal", "moments", "atrous", "taa", "intersect_dense", "intersect_clustered",
-         "temporal_band", "moments_band", "atrous_iteration", "taa_band"), 0)
+         "temporal_band", "moments_band", "atrous_iteration", "taa_band", "shade_pre",
+         "shade_post"), 0)
 
 
 def _band_calls(radiance, gbuf, state):
@@ -253,7 +254,8 @@ def test_normal_power_squarings(phi, expect):
 def test_library_path_is_keyed_by_the_sources():
     path = build.library_path()
     assert path.parent == build.BUILD_DIR and path == build.library_path()
-    assert len(sorted(build.CSRC.glob("*.cu"))) == 6   # K7 is temporal.cu's band entry
+    # K7 is temporal.cu's band entry; shade.cu holds both shading kernels
+    assert len(sorted(build.CSRC.glob("*.cu"))) == 7
     for name in build.SIGNATURES:
         assert any(name in src.read_text() for src in build.CSRC.glob("*.cu")), name
 
